@@ -7,20 +7,32 @@
 
 Phases, each printing its own lines:
 
-  1. build    compile the flash-attention CUDA sources in csrc/ (one nvcc
-              process per source, all started together) and load them;
-  2. kernels  hold each kernel (forward, backward dQ, backward dK/dV) against
-              its plain PyTorch version in bf16 at every shape the main path
-              gives it, plus a ragged and a kv_len case, and time the kernel,
-              the plain version and PyTorch's scaled_dot_product_attention
-              (a yardstick only: the port never calls it);
+  1. build    compile the CUDA sources in csrc/ (flash attention and the
+              fused GroupNorm+SiLU: one nvcc process per source, all started
+              together) and load them;
+  2. kernels  hold each kernel against its plain PyTorch version in bf16 at
+              every shape the two paths give it and time the kernel, the
+              plain version and one PyTorch call as a yardstick (the port
+              never calls it): flash forward, backward dQ and dK/dV at the
+              sketch-guided shapes plus a ragged and a kv_len case, the flash
+              forward at the injection path's shapes (batch 16 self- and
+              concat attention, the ViT's 257 tokens), and the GroupNorm
+              kernel at every (B, C, H, W, eps, silu) recorded from one pass
+              of each model on both paths, plus real activations;
   3. e2e      full-width SD1.5 (seeded random weights): the kernels against
-              the plain attention path inside one guided UNet pass, then a
-              512x512, 50-step sketch-guided request through
-              ``SketchGuidedPipeline`` (after a 4-step warm-up), with the
-              kernels' launch counters zeroed just before and read just after;
-  4. profile  (only when asked: --phases build,profile) device time by
-              kernel over a 4-step request, from torch.profiler.
+              the plain attention path, then against the plain GroupNorm
+              path, inside one guided UNet pass; then a 512x512, 50-step
+              sketch-guided request through ``SketchGuidedPipeline`` (after a
+              4-step warm-up), launch counters zeroed just before and read
+              just after;
+  4. inject   the attention-injection path: ``ClipGuidedPipeline`` with the
+              clip-injected UNet, the ViT-L/14 sketch encoder and a safety
+              checker (seeded random weights, bf16), one 512x512 request at
+              batch 8, 25 DPM-Solver++ steps, guidance 7.5, strength 0.5, one
+              sketch, launch counters zeroed just before and read just after;
+  5. profile  (only when asked: --phases build,profile) device time by
+              kernel over a 4-step sketch-guided request and a 5-step batch-8
+              injection request, from torch.profiler.
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -50,15 +62,26 @@ SITES = {"flash_fwd": {4096: 5, 1024: 5, 256: 5},
          "flash_bwd_dq": {4096: 2, 1024: 5, 256: 5},
          "flash_bwd_dkv": {4096: 2, 1024: 5, 256: 5}}
 FWD_SITES, BWD_SITES = 15, 12
+# GroupNorm calls per UNet forward (22 resnets x 2, 16 SpatialTransformer
+# norms, conv_norm_out) and per VAE encode / decode
+GN_UNET, GN_VAE_ENC, GN_VAE_DEC = 61, 22, 30
+# the injection path: batch 8 (16 with the CFG pair); per UNet forward 15
+# attn1 and 15 sketch_attn flash sites (the 8^2 mid block's two take the
+# plain path); the CLIP part of sketch_attn's keys is 257 tokens padded to 384
+INJ_BATCH, INJ_STEPS, INJ_FLASH_SITES, CLIP_PAD = 8, 25, 30, 384
+VIT_LAYERS, VIT_HEADS, VIT_TOKENS, VIT_D = 24, 16, 257, 64
 REPLACES = {
     "flash_fwd": "sketch2img_tpu/ops/flash_attention.py:211 (_fwd_kernel; _fwd_kernel_t :331)",
     "flash_bwd_dq": "sketch2img_tpu/ops/flash_attention.py:601 (_bwd_dq_kernel; _bwd_dq_kernel_t :421)",
     "flash_bwd_dkv": "sketch2img_tpu/ops/flash_attention.py:640 (_bwd_dkv_kernel; _bwd_dkv_kernel_t :462)",
+    "groupnorm_silu": "sketch2img_tpu/ops/groupnorm.py:54 (_kernel; _fused_forward :97, "
+                      "pallas_call :112)",
 }
 SOURCES = {
     "flash_fwd": "sketch2img_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "sketch2img_torch/csrc/flash_bwd_dq.cu",
     "flash_bwd_dkv": "sketch2img_torch/csrc/flash_bwd_dkv.cu",
+    "groupnorm_silu": "sketch2img_torch/csrc/groupnorm_silu.cu",
 }
 # bf16 outputs carry 2^-9 relative rounding and the kernel accumulates in a
 # different order than the plain version (both round P and dS to bf16 before
@@ -67,6 +90,10 @@ SOURCES = {
 # held to an absolute limit.
 TOL_REL = 2e-2
 TOL_LSE_ABS = 1e-3
+# GroupNorm: one bf16 rounding of the output (2^-9 relative) plus another
+# summation order of the statistics; max error within 1% of max|plain|, mean
+# error within 0.1% of it
+GN_TOL_MAX, GN_TOL_MEAN = 1e-2, 1e-3
 
 
 class PhaseError(RuntimeError):
@@ -92,9 +119,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(kind: str, b: int, nq: int, nk: int, kv_len: int, d: int) -> tuple:
+def bound_ms(kind: str, b: int, h: int, nq: int, nk: int, kv_len: int, d: int) -> tuple:
     """Least time on the card: max(tensor-core flops / peak, bytes / HBM rate)."""
-    bh = b * HEADS
+    bh = b * h
     e = 2  # bf16
     if kind == "flash_fwd":
         flops = 4 * bh * nq * kv_len * d
@@ -107,32 +134,54 @@ def bound_ms(kind: str, b: int, nq: int, nk: int, kv_len: int, d: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def gn_bound_ms(numel: int, channels: int) -> tuple:
+    """GroupNorm+SiLU moves x in and y out once (bf16) plus gamma and beta;
+    its ~10 fp32 operations an element are far below the byte time."""
+    return (2 * numel * 2 + 2 * channels * 2) / PEAK_HBM_BYTES * 1e3, "bytes"
+
+
+def new_entry() -> dict:
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0, "bound_by": None, "shapes": []}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(fa, torch) -> dict:
-    import torch.nn.functional as F
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def flash_cases():
+    """(tag, B, H, nq, nk, kv_len, d, with_backward) at every flash shape of
+    the two paths."""
     cases = []
     for n, d in MAIN_SHAPES:
         for b in (1, 2):
-            cases.append(("main", b, n, n, None, d, b == 1))
-    cases.append(("ragged", 1, 300, 300, None, 40, True))
-    cases.append(("kv_len", 1, 4096, 4480, 4353, 40, True))
+            cases.append(("main", b, HEADS, n, n, None, d, b == 1))
+    cases.append(("ragged", 1, HEADS, 300, 300, None, 40, True))
+    cases.append(("kv_len", 1, HEADS, 4096, 4480, 4353, 40, True))
+    for n, d in MAIN_SHAPES:
+        cases.append(("inject_attn1", 2 * INJ_BATCH, HEADS, n, n, None, d, False))
+        cases.append(("inject_sketch_attn", 2 * INJ_BATCH, HEADS, n, n + CLIP_PAD,
+                      n + VIT_TOKENS, d, False))
+    cases.append(("vit_sketch", 1, VIT_HEADS, VIT_TOKENS, VIT_TOKENS, None, VIT_D, False))
+    cases.append(("vit_safety", INJ_BATCH, VIT_HEADS, VIT_TOKENS, VIT_TOKENS, None, VIT_D,
+                  False))
+    return cases
 
-    per_kernel = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                      "bound_ms": 0.0, "bound_by": None, "shapes": []} for k in REPLACES}
+
+def check_flash(fa, torch) -> dict:
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per_kernel = {k: new_entry() for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     failures = []
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    for tag, b, nq, nk, kv_len, d, with_bwd in cases:
-        q, k, v = randn(b, HEADS, nq, d), randn(b, HEADS, nk, d), randn(b, HEADS, nk, d)
-        do = randn(b, HEADS, nq, d)
+    for tag, b, h, nq, nk, kv_len, d, with_bwd in flash_cases():
+        q, k, v = randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d)
+        do = randn(b, h, nq, d)
         scale = d ** -0.5
         kvl = nk if kv_len is None else kv_len
         ks, vs = k[:, :, :kvl], v[:, :, :kvl]
@@ -178,10 +227,10 @@ def check_kernels(fa, torch) -> dict:
             err = max(c[1] for c in checks)
             ok = all(c[4] for c in checks)
             kms, pms, lms = times[name]
-            bms, bby = bound_ms(name, b, nq, nk, kvl, d)
+            bms, bby = bound_ms(name, b, h, nq, nk, kvl, d)
             detail = " ".join(f"{lb}:err={e:.3e},max|ref|={m:.3e},tol={t:.3e}"
                               for lb, e, m, t, _ in checks)
-            log(f"kernel={name} case={tag} shape=(B={b},H={HEADS},nq={nq},nk={nk},d={d})"
+            log(f"kernel={name} case={tag} shape=(B={b},H={h},nq={nq},nk={nk},d={d})"
                 f" kv_len={kvl} {detail} ok={ok}"
                 f" ms={kms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f}"
                 f" bound_ms={bms:.4f} ({bby})")
@@ -197,10 +246,10 @@ def check_kernels(fa, torch) -> dict:
                 pk["library_ms"] += n_sites * lms
                 pk["bound_ms"] += n_sites * bms
                 pk["bound_by"] = pk["bound_by"] or bby
-            pk["shapes"].append({"case": tag, "B": b, "nq": nq, "nk": nk, "kv_len": kvl,
-                                 "d": d, "ms": kms, "plain_ms": pms, "library_ms": lms,
-                                 "bound_ms": bms})
-        del q, k, v, do, o, lse
+            pk["shapes"].append({"case": tag, "B": b, "H": h, "nq": nq, "nk": nk,
+                                 "kv_len": kvl, "d": d, "ms": kms, "plain_ms": pms,
+                                 "library_ms": lms, "bound_ms": bms})
+        del q, k, v, do, o, lse, results
         torch.cuda.empty_cache()
     if failures:
         raise PhaseError("; ".join(failures))
@@ -226,6 +275,134 @@ def time_split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl):
     return t_dq, t_dkv
 
 
+def record_gn_calls(stack, gn, torch) -> tuple:
+    """One pass of each model of the two paths with a recorder on the
+    GroupNorm op -> ({pass: [((B, C, H, W), eps, silu), ...]}, {tag: real
+    input}). The real inputs: a 64^2 norm1 of the UNet's up path (C=960) at
+    t=500, and the VAE decoder's conv_norm_out input at 512^2."""
+    comps, inj = stack.comps, stack.inject
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    def unet(b, injected=False):
+        t = torch.full((b,), 500, dtype=torch.long, device="cuda")
+        if not injected:
+            return comps.unet(randn(b, 4, 64, 64), t, randn(b, 77, 768))
+        state = randn(b, VIT_TOKENS, inj.clip_config.hidden_size)
+        scale = torch.full((b, 1, 1), 0.5, device="cuda")
+        return inj.unet(randn(b, 4, 64, 64), t, randn(b, 77, 768),
+                        injection_states=[state] * 16, injection_scale=scale)
+
+    passes = {
+        "unet_b1": lambda: unet(1),                      # sketch-guided, guided steps
+        "unet_b2": lambda: unet(2),                      # sketch-guided, plain steps
+        "unet_inj_b16": lambda: unet(2 * INJ_BATCH, True),  # injection path
+        "vae_enc_b1": lambda: comps.vae.encode(randn(1, 3, 512, 512)),
+        "vae_dec_b1": lambda: comps.vae.decode(randn(1, 4, 64, 64)),
+        "vae_dec_b8": lambda: comps.vae.decode(randn(INJ_BATCH, 4, 64, 64)),
+    }
+    real = gn._forward
+    calls, inputs = [], {}
+
+    def recorder(x, w, b, groups, eps, silu):
+        calls.append((tuple(x.shape), float(eps), bool(silu)))
+        if name == "unet_b1" and x.shape[1:] == (960, 64, 64) and "unet_norm1" not in inputs:
+            inputs["unet_norm1"] = x.detach().clone()
+        if name == "vae_dec_b1" and x.shape[1:] == (128, 512, 512):
+            inputs["vae_norm_out"] = x.detach().clone()  # the last one wins
+        return real(x, w, b, groups, eps, silu)
+
+    per_pass = {}
+    gn._forward = recorder
+    try:
+        with torch.no_grad():
+            for name, fn in passes.items():
+                calls.clear()
+                fn()
+                per_pass[name] = list(calls)
+    finally:
+        gn._forward = real
+    want = {"unet_b1": GN_UNET, "unet_b2": GN_UNET, "unet_inj_b16": GN_UNET,
+            "vae_enc_b1": GN_VAE_ENC, "vae_dec_b1": GN_VAE_DEC, "vae_dec_b8": GN_VAE_DEC}
+    got = {k: len(v) for k, v in per_pass.items()}
+    log(f"  GroupNorm calls per pass {got} expected {want}")
+    if got != want:
+        raise PhaseError(f"GroupNorm calls per pass {got} != {want}")
+    return per_pass, inputs
+
+
+def check_groupnorm(stack, gn, torch) -> dict:
+    """The kernel against its plain version at every distinct (B, C, H, W,
+    eps, silu) the passes gave it (random inputs, mean 0.5, and a random
+    affine) and on the real activations; times of the kernel, the plain
+    version and the yardstick F.silu(F.group_norm(x)) (two PyTorch calls)."""
+    import torch.nn.functional as F
+
+    per_pass, inputs = record_gn_calls(stack, gn, torch)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = {}
+    for calls in per_pass.values():
+        for shape, eps, silu in calls:
+            cases.setdefault((shape, eps, silu), None)
+    work = [("shape", shape, eps, silu, None) for shape, eps, silu in cases]
+    work += [("real_unet_norm1", tuple(inputs["unet_norm1"].shape), 1e-5, True,
+              inputs["unet_norm1"]),
+             ("real_vae_norm_out", tuple(inputs["vae_norm_out"].shape), 1e-6, True,
+              inputs["vae_norm_out"])]
+    entry, failures, timed = new_entry(), [], {}
+    for tag, shape, eps, silu, x in work:
+        c = shape[1]
+        if x is None:
+            x = (torch.randn(*shape, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        y = gn.group_norm_silu_kernel(x, w, b, 32, eps, silu)
+        p = gn.group_norm_silu_plain(x, w, b, 32, eps, silu)
+        torch.cuda.synchronize()
+        diff = (y.float() - p.float()).abs()
+        ref = float(p.float().abs().max())
+        err, mean_err = float(diff.max()), float(diff.mean())
+        ok = (bool(torch.isfinite(y).all()) and err <= GN_TOL_MAX * ref
+              and mean_err <= GN_TOL_MEAN * ref)
+
+        def library():
+            out = F.group_norm(x, 32, w, b, eps)
+            return F.silu(out) if silu else out
+
+        big = x.numel() > 2 ** 26
+        kms = time_ms(lambda: gn.group_norm_silu_kernel(x, w, b, 32, eps, silu))
+        pms = time_ms(lambda: gn.group_norm_silu_plain(x, w, b, 32, eps, silu),
+                      reps=3 if big else 5)
+        lms = time_ms(library)
+        bms, bby = gn_bound_ms(x.numel(), c)
+        log(f"kernel=groupnorm_silu case={tag} shape={shape} eps={eps:g} silu={silu}"
+            f" err={err:.3e} mean_err={mean_err:.3e} max|plain|={ref:.3e}"
+            f" tol={GN_TOL_MAX * ref:.3e}/{GN_TOL_MEAN * ref:.3e} ok={ok}"
+            f" ms={kms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f} bound_ms={bms:.4f} ({bby})")
+        if not ok:
+            failures.append(f"groupnorm_silu {tag} {shape} eps={eps} silu={silu}: err={err:.3e}"
+                            f" mean={mean_err:.3e} max|plain|={ref:.3e}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["bound_by"] = bby
+        timed[(shape, eps, silu)] = (kms, pms, lms, bms)
+        entry["shapes"].append({"case": tag, "shape": list(shape), "eps": eps, "silu": silu,
+                                "ms": kms, "plain_ms": pms, "library_ms": lms,
+                                "bound_ms": bms})
+        del x, y, p, diff
+        torch.cuda.empty_cache()
+    if failures:
+        raise PhaseError("; ".join(failures))
+    for name, calls in per_pass.items():
+        tot = [sum(timed[call][i] for call in calls) for i in range(4)]
+        log(f"  groupnorm_silu summed over one {name} pass ({len(calls)} calls): ms={tot[0]:.4f}"
+            f" plain_ms={tot[1]:.4f} library_ms={tot[2]:.4f} bound_ms={tot[3]:.4f}")
+        if name == "unet_b1":  # the flash kernels' convention: one batch-1 UNet pass
+            entry["ms"], entry["plain_ms"], entry["library_ms"], entry["bound_ms"] = tot
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -243,7 +420,7 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,e2e")
+    ap.add_argument("--phases", default="build,kernels,e2e,inject")
     ap.add_argument("--steps", type=int, default=50, help="sampling steps of the e2e request")
     ap.add_argument("--ptxas", action="store_true", help="print ptxas register/smem use")
     args = ap.parse_args(argv)
@@ -257,6 +434,7 @@ def main(argv=None) -> int:
         return 2
     try:
         from sketch2img_torch.ops import flash_attention as fa
+        from sketch2img_torch.ops import groupnorm as gn
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable here ({e}); run from "
               "the root of a checkout", file=sys.stderr)
@@ -268,12 +446,17 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
+    stack = Stack(torch)
     per_kernel = None
-    e2e = None
+    launches = {}
     try:
         if phases:
+            from concurrent.futures import ThreadPoolExecutor
+
             t0 = time.time()
-            fa.load_library(verbose=args.ptxas)
+            with ThreadPoolExecutor(2) as pool:  # every nvcc process starts at once
+                for f in [pool.submit(m.load_library, verbose=args.ptxas) for m in (fa, gn)]:
+                    f.result()
             log(f"phase build: ok, {time.time() - t0:.2f} s")
             if args.ptxas:
                 from sketch2img_torch.utils.cuda_build import LAST_BUILD_LOG
@@ -282,15 +465,21 @@ def main(argv=None) -> int:
                     log(chunk)
         if "kernels" in phases:
             t0 = time.time()
-            per_kernel = check_kernels(fa, torch)
+            per_kernel = check_flash(fa, torch)
+            log(f"  flash kernels checked, {time.time() - t0:.2f} s")
+            per_kernel["groupnorm_silu"] = check_groupnorm(stack, gn, torch)
             log(f"phase kernels: ok, {time.time() - t0:.2f} s")
         if "e2e" in phases:
             t0 = time.time()
-            e2e = run_e2e(fa, torch, args.steps)
+            launches["sketch_guided"] = run_e2e(stack, fa, gn, torch, args.steps)
             log(f"phase e2e: ok, {time.time() - t0:.2f} s")
+        if "inject" in phases:
+            t0 = time.time()
+            launches["inject"] = run_inject(stack, fa, gn, torch)
+            log(f"phase inject: ok, {time.time() - t0:.2f} s")
         if "profile" in phases:
             t0 = time.time()
-            run_profile(torch)
+            run_profile(stack, torch)
             log(f"phase profile: ok, {time.time() - t0:.2f} s")
     except Exception as e:  # every failed phase ends the run with a non-zero exit
         traceback.print_exc()
@@ -298,14 +487,17 @@ def main(argv=None) -> int:
         return 1
 
     if per_kernel is not None:
-        # launches are counted only in the e2e run; without it there is no count
-        launches = e2e["launches"] if e2e is not None else {k: None for k in REPLACES}
+        # launches are counted only in the paths' counted runs (summed over
+        # the paths that ran); without one there is no count
         entries = []
         for name in REPLACES:
             pk = per_kernel[name]
+            by_path = {path: per_path[name] for path, per_path in launches.items()}
             entries.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name],
+                "launches": sum(by_path.values()) if by_path else None,
+                "launches_by_path": by_path,
                 "max_abs_err": pk["max_abs_err"], "ms": pk["ms"], "plain_ms": pk["plain_ms"],
                 "bound_ms": pk["bound_ms"], "bound_by": pk["bound_by"],
                 "library_ms": pk["library_ms"], "shapes": pk["shapes"],
@@ -318,7 +510,7 @@ def main(argv=None) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: end to end, full-width SD1.5 on seeded random weights
+# the full-width models, shared by the phases
 # ---------------------------------------------------------------------------
 
 
@@ -355,46 +547,117 @@ def guided_pass(comps, torch, x, t, ctx, target):
     return eps.detach(), g
 
 
-def run_e2e(fa, torch, steps: int) -> dict:
+class Stack:
+    """SD1.5 at full published width on seeded random weights (bf16, LGP
+    fp32), and the injection pipeline over the same components; each built
+    at first use."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self._comps = self._inject = None
+
+    @property
+    def comps(self):
+        if self._comps is None:
+            from sketch2img_torch.runtime import SDComponents
+
+            torch = self.torch
+            t0 = time.perf_counter()
+            self._comps = c = SDComponents.random_init(seed=0, compute_dtype=torch.bfloat16,
+                                                       device="cuda")
+            c.tokenizer = StandInTokenizer()
+            torch.cuda.synchronize()
+            n_params = {name: sum(p.numel() for p in m.parameters())
+                        for name, m in (("unet", c.unet), ("vae", c.vae),
+                                        ("text_encoder", c.text_encoder), ("lgp", c.lgp))}
+            log(f"  random_init (full SD1.5 width, bf16, LGP fp32 {c.lgp.layers[0].in_features}"
+                f" inputs): {time.perf_counter() - t0:.2f} s, params {n_params}")
+        return self._comps
+
+    @property
+    def inject(self):
+        if self._inject is None:
+            from sketch2img_torch.apps.clip_guided_inf import ClipGuidedPipeline
+
+            t0 = time.perf_counter()
+            self._inject = p = ClipGuidedPipeline(components=self.comps)
+            self.torch.cuda.synchronize()
+            log(f"  ClipGuidedPipeline (clip-injected UNet over the shared base weights, "
+                f"ViT-L/14 {sum(q.numel() for q in p.clip.parameters())} params, injection "
+                f"blocks {sum(q.numel() for q in p.unet.sat.parameters())} params): "
+                f"{time.perf_counter() - t0:.2f} s")
+        return self._inject
+
+
+def sketch_image(np):
+    sketch = np.zeros((512, 512), np.float32)
+    sketch[100:412, 250:262] = 1.0
+    sketch[250:262, 100:412] = 1.0
+    return sketch
+
+
+def counts(fa, gn) -> dict:
+    return {**fa.LAUNCHES, **gn.LAUNCHES}
+
+
+def reset_counts(fa, gn) -> None:
+    fa.reset_launch_counts()
+    gn.reset_launch_counts()
+
+
+def compare_guided(comps, torch, x, t, ctx, target, label, plain_route):
+    """Guided UNet pass with the kernels against one with ``plain_route``
+    (a context manager) in force: eps relative error and gradient cosine."""
+    eps_k, g_k = guided_pass(comps, torch, x, t, ctx, target)
+    with plain_route():
+        eps_p, g_p = guided_pass(comps, torch, x, t, ctx, target)
+    eps_rel = float((eps_k - eps_p).abs().max() / eps_p.abs().max())
+    g_cos = float(torch.nn.functional.cosine_similarity(g_k.flatten(), g_p.flatten(), dim=0))
+    ok = eps_rel <= 5e-2 and g_cos >= 0.98
+    log(f"  guided UNet pass, kernels vs {label} (bf16, 512^2): eps max err / max|eps|"
+        f" = {eps_rel:.3e} (tol 5e-2), grad cosine = {g_cos:.5f} (tol 0.98) ok={ok}")
+    if not ok:
+        raise PhaseError(f"kernels disagree with the {label} in the guided pass")
+
+
+def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
+    import contextlib
+
     import numpy as np
 
     from sketch2img_torch.ops.attention import set_default_attention_backend
     from sketch2img_torch.pipelines.sketch_guided import num_guided_steps
-    from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline
+    from sketch2img_torch.runtime import SketchGuidedPipeline
 
-    t0 = time.perf_counter()
-    comps = SDComponents.random_init(seed=0, compute_dtype=torch.bfloat16, device="cuda")
-    comps.tokenizer = StandInTokenizer()
-    torch.cuda.synchronize()
-    n_params = {name: sum(p.numel() for p in m.parameters())
-                for name, m in (("unet", comps.unet), ("vae", comps.vae),
-                                ("text_encoder", comps.text_encoder), ("lgp", comps.lgp))}
-    log(f"  random_init (full SD1.5 width, bf16, LGP fp32 {comps.lgp.layers[0].in_features}"
-        f" inputs): {time.perf_counter() - t0:.2f} s, params {n_params}")
+    comps = stack.comps
     pipe = SketchGuidedPipeline(comps)
-    sketch = np.zeros((512, 512), np.float32)
-    sketch[100:412, 250:262] = 1.0
-    sketch[250:262, 100:412] = 1.0
+    sketch = sketch_image(np)
 
-    # the kernels against the plain attention path inside one guided UNet pass
+    @contextlib.contextmanager
+    def plain_attention():
+        set_default_attention_backend("plain")
+        try:
+            yield
+        finally:
+            set_default_attention_backend("auto")
+
+    @contextlib.contextmanager
+    def plain_groupnorm():  # every GroupNorm through the plain version, flash kept
+        real = gn._forward
+        gn._forward = gn.group_norm_silu_plain
+        try:
+            yield
+        finally:
+            gn._forward = real
+
+    # the kernels against the plain paths inside one guided UNet pass
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(1, 4, 64, 64, generator=gen, device="cuda")
     target = torch.randn(1, 4, 64, 64, generator=gen, device="cuda") * 0.2
     t = torch.full((1,), 801, dtype=torch.long, device="cuda")
     _, ctx = pipe.encode_prompt("a house")
-    eps_k, g_k = guided_pass(comps, torch, x, t, ctx, target)
-    set_default_attention_backend("plain")
-    try:
-        eps_p, g_p = guided_pass(comps, torch, x, t, ctx, target)
-    finally:
-        set_default_attention_backend("auto")
-    eps_rel = float((eps_k - eps_p).abs().max() / eps_p.abs().max())
-    g_cos = float(torch.nn.functional.cosine_similarity(g_k.flatten(), g_p.flatten(), dim=0))
-    ok = eps_rel <= 5e-2 and g_cos >= 0.98
-    log(f"  guided UNet pass, kernels vs plain attention (bf16, 512^2): eps max err / max|eps|"
-        f" = {eps_rel:.3e} (tol 5e-2), grad cosine = {g_cos:.5f} (tol 0.98) ok={ok}")
-    if not ok:
-        raise PhaseError("kernels disagree with the plain attention path in the guided pass")
+    compare_guided(comps, torch, x, t, ctx, target, "plain attention path", plain_attention)
+    compare_guided(comps, torch, x, t, ctx, target, "plain GroupNorm path", plain_groupnorm)
 
     def run(n_steps, count, per_step=True):
         marks = []
@@ -405,12 +668,12 @@ def run_e2e(fa, torch, steps: int) -> dict:
 
         torch.cuda.synchronize()
         if count:
-            fa.reset_launch_counts()
+            reset_counts(fa, gn)
         start = time.perf_counter()
         img = pipe("a sketch of a house", num_inference_steps=n_steps, width=512, height=512,
                    seed=1234, sketch_image=sketch, callback=cb if per_step else None)
         torch.cuda.synchronize()
-        launches = dict(fa.LAUNCHES) if count else None
+        launches = counts(fa, gn) if count else None
         return img, launches, start, marks, time.perf_counter()
 
     run(4, False)  # warm-up: cuDNN plans for both batch sizes, allocator
@@ -418,11 +681,13 @@ def run_e2e(fa, torch, steps: int) -> dict:
     img, launches, start, marks, end = run(steps, True)  # the counted main-path run
     _, _, r_start, _, r_end = run(steps, False, per_step=False)  # no per-step syncs
     log(f"  request (sketch-guided 512x512 B=1, {steps} steps, no callback): "
-        f"{r_end - r_start:.3f} s")
+        f"{r_end - r_start:.3f} s on {card_line()}")
     n_guided = num_guided_steps(steps)
     n_plain = steps - n_guided
-    expected = {"flash_fwd": FWD_SITES * (2 * n_guided + n_plain),
-                "flash_bwd_dq": BWD_SITES * n_guided, "flash_bwd_dkv": BWD_SITES * n_guided}
+    forwards = 2 * n_guided + n_plain
+    expected = {"flash_fwd": FWD_SITES * forwards,
+                "flash_bwd_dq": BWD_SITES * n_guided, "flash_bwd_dkv": BWD_SITES * n_guided,
+                "groupnorm_silu": GN_UNET * forwards + GN_VAE_ENC + GN_VAE_DEC}
     step_s = [b - a for a, b in zip(marks[:-1], marks[1:])]
     guided_s = step_s[: n_guided - 1]
     plain_s = step_s[n_guided - 1:]
@@ -442,33 +707,101 @@ def run_e2e(fa, torch, steps: int) -> dict:
         raise PhaseError(f"launch counts {launches} != expected {expected}")
     if img.std() == 0:
         raise PhaseError("e2e image is constant")
-    return {"launches": launches, "guided_step_s": guided_s, "plain_step_s": plain_s}
+    return launches
 
 
-def run_profile(torch, steps: int = 4) -> None:
-    """Device time by kernel over one short request (torch.profiler), the
-    device's busy share of the wall time, and the flash kernels' share."""
+def run_inject(stack, fa, gn, torch) -> dict:
+    """Batch-8 attention-injection request (config 5 of the JAX package's
+    bench) with the safety checker on; its launch counts."""
     import numpy as np
+
+    comps = stack.comps
+    pipe = stack.inject
+    comps.random_safety_checker(seed=2)
+    try:
+        prompts = [f"a sketch of a house, take {i}" for i in range(INJ_BATCH)]
+        kw = dict(width=512, height=512, guidance_scale=7.5, strength=0.5,
+                  spimg=sketch_image(np), seed=1234)
+        pipe(prompts, num_inference_steps=2, **kw)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, gn)
+        start = time.perf_counter()
+        img = pipe(prompts, num_inference_steps=INJ_STEPS, **kw)  # the counted run
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        launches = counts(fa, gn)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        start2 = time.perf_counter()
+        pipe(prompts, num_inference_steps=INJ_STEPS, **kw)
+        torch.cuda.synchronize()
+        end2 = time.perf_counter()
+        flags = pipe.last_nsfw_flags
+        b2 = 2 * INJ_BATCH
+        with torch.no_grad():
+            args = (torch.randn(b2, 4, 64, 64, device="cuda"),
+                    torch.full((b2,), 500, dtype=torch.long, device="cuda"),
+                    torch.randn(b2, 77, 768, device="cuda"))
+            state = torch.randn(b2, VIT_TOKENS, pipe.clip_config.hidden_size, device="cuda")
+            scale = torch.full((b2, 1, 1), 0.5, device="cuda")
+            unet_ms = time_ms(lambda: pipe.unet(*args, injection_states=[state] * 16,
+                                                injection_scale=scale), reps=5, warmup=1)
+    finally:
+        comps.safety_checker = None
+    log(f"  inject request (clip injection 512x512 B={INJ_BATCH}, dpm++ {INJ_STEPS} steps,"
+        f" guidance 7.5, strength 0.5, safety checker on): {end - start:.3f} s and"
+        f" {end2 - start2:.3f} s ({(end2 - start2) / INJ_STEPS:.4f} s per step, encode and"
+        f" decode included); injected UNet forward at B={b2}: {unet_ms:.2f} ms; peak memory"
+        f" {peak:.2f} GiB; nsfw flags {flags.tolist()}; on {card_line()}")
+    expected = {"flash_fwd": INJ_STEPS * INJ_FLASH_SITES + 2 * VIT_LAYERS,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "groupnorm_silu": INJ_STEPS * GN_UNET + GN_VAE_DEC}
+    finite = bool(np.isfinite(img).all())
+    log(f"  images shape {img.shape} finite={finite} min={img.min():.4f} max={img.max():.4f}"
+        f" mean={img.mean():.4f} std={img.std():.4f}")
+    log(f"  launches {launches} expected {expected}")
+    if img.shape != (INJ_BATCH, 512, 512, 3) or not finite or img.min() < 0 or img.max() > 1:
+        raise PhaseError(f"inject images are not finite ({INJ_BATCH}, 512, 512, 3) in [0, 1]")
+    if img.std() == 0:
+        raise PhaseError("inject images are constant")
+    if launches != expected:
+        raise PhaseError(f"launch counts {launches} != expected {expected}")
+    return launches
+
+
+def run_profile(stack, torch, steps: int = 4, inject_steps: int = 5) -> None:
+    """Device time by kernel over one short request of each path
+    (torch.profiler): the device's busy share of the wall time, and the
+    shares of the flash kernels, the GroupNorm kernel and copies/casts."""
+    import numpy as np
+
+    from sketch2img_torch.runtime import SketchGuidedPipeline
+
+    pipe = SketchGuidedPipeline(stack.comps)
+    sketch = np.zeros((512, 512), np.float32)
+    sketch[:, 250:262] = 1.0
+    profile_request(torch, f"{steps}-step sketch-guided request", lambda: pipe(
+        "a sketch of a house", num_inference_steps=steps, width=512, height=512, seed=1234,
+        sketch_image=sketch))
+    inj = stack.inject
+    profile_request(torch, f"{inject_steps}-step injection request, B={INJ_BATCH}", lambda: inj(
+        [f"a sketch of a house, take {i}" for i in range(INJ_BATCH)],
+        num_inference_steps=inject_steps, width=512, height=512, strength=0.5, spimg=sketch,
+        seed=1234))
+
+
+def profile_request(torch, label: str, request) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline
-
-    comps = SDComponents.random_init(seed=0, compute_dtype=torch.bfloat16, device="cuda")
-    comps.tokenizer = StandInTokenizer()
-    pipe = SketchGuidedPipeline(comps)
-    sketch = np.zeros((512, 512), np.float32)
-    sketch[:, 250:262] = 1.0
-
-    def request():
-        pipe("a sketch of a house", num_inference_steps=steps, width=512, height=512,
-             seed=1234, sketch_image=sketch)
+    def run():
+        request()
         torch.cuda.synchronize()
 
-    request()
+    run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        request()
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
     for e in prof.events():  # device-side kernel events only (ops would count twice)
@@ -477,12 +810,18 @@ def run_profile(torch, steps: int = 4) -> None:
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     rows = sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)
     busy = sum(r[0] for r in rows)
-    flash = sum(r[0] for r in rows if "flash_" in r[2])
-    log(f"  profile of a {steps}-step request: wall {wall_us / 1e3:.2f} ms, kernels "
+
+    def share(pred):
+        us = sum(r[0] for r in rows if pred(r[2]))
+        return f"{us / 1e3:.2f} ms ({100 * us / max(busy, 1e-9):.1f}% of device time)"
+
+    log(f"  profile of a {label}: wall {wall_us / 1e3:.2f} ms, kernels "
         f"{sum(r[1] for r in rows)} launches, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f}% of wall, idle {100 * (1 - busy / wall_us):.1f}%), "
-        f"flash kernels {flash / 1e3:.2f} ms ({100 * flash / max(busy, 1e-9):.1f}% of "
-        f"device time)")
+        f"flash kernels {share(lambda k: 'flash_' in k)}, GroupNorm kernel "
+        f"{share(lambda k: 'gn_stats' in k or 'gn_apply' in k)}, PyTorch GroupNorm "
+        f"{share(lambda k: 'RowwiseMoments' in k or 'group_norm' in k.lower())}, "
+        f"copies and casts {share(lambda k: 'copy' in k.lower())}")
     for dev, count, key in rows[:25]:
         log(f"    {dev / 1e3:10.3f} ms  {count:6d}x  {key[:110]}")
 

@@ -5,7 +5,10 @@ npz files) -> state dicts of the port's modules.
 These invert the JAX package's torch -> Flax converters
 (``core/convert.py::convert_torch_unet`` / ``convert_torch_vae``,
 ``models/clip_text.py::convert_torch_clip_text``,
-``models/lgp.py::convert_torch_lgp``):
+``models/lgp.py::convert_torch_lgp``,
+``models/clip_vision.py::convert_torch_clip_vision``,
+``models/safety_checker.py::convert_torch_safety_checker``,
+``core/export.py::convert_torch_sat``):
 
   conv   flax (kh, kw, I, O) -> torch (O, I, kh, kw)
   dense  flax (I, O)         -> torch (O, I)
@@ -15,15 +18,29 @@ These invert the JAX package's torch -> Flax converters
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from sketch2img_torch.models.unet import SD15_CONFIG, UNetConfig
+from sketch2img_torch.models.unet import SD15_CONFIG, UNetConfig, injection_sites, sat_name
 from sketch2img_torch.models.vae import SD15_VAE_CONFIG, VAEConfig
 
 StateDict = Dict[str, torch.Tensor]
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """A JAX package npz export ("a/b/c" keys, ``export_params_npz``) ->
+    the nested parameter tree."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *outer, leaf = key.split("/")
+            node = tree
+            for part in outer:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    return tree
 
 
 def _t(x) -> torch.Tensor:
@@ -179,4 +196,73 @@ def lgp_from_jax(params: Mapping, batch_stats: Mapping) -> StateDict:
         sd[f"layers.{bi}.running_mean"] = _t(batch_stats[f"bn_{i}"]["mean"])
         sd[f"layers.{bi}.running_var"] = _t(batch_stats[f"bn_{i}"]["var"])
         sd[f"layers.{bi}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def clip_vision_from_jax(params: Mapping, num_layers: int = 24,
+                         prefix: str = "vision_model.") -> StateDict:
+    """JAX ``CLIPVisionEncoder`` params -> port ``CLIPVisionEncoder`` state
+    dict (transformers ``CLIPVisionModel`` names under ``prefix``).
+    ``post_layernorm`` is not in the JAX tree (only the safety checker's
+    pooled output reads it): it comes out as the identity, scale 1, bias 0."""
+    p = prefix
+    pre = params["pre_layrnorm"]["LayerNorm_0"]
+    sd: StateDict = {
+        p + "embeddings.class_embedding": _t(params["class_embedding"]),
+        p + "embeddings.patch_embedding.weight":
+            _t(np.asarray(params["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1)),
+        p + "embeddings.position_embedding.weight": _t(params["position_embedding"]),
+    }
+    _norm(sd, p + "pre_layrnorm", params["pre_layrnorm"])
+    for i in range(num_layers):
+        lp, lx = params[f"layer_{i}"], f"{p}encoder.layers.{i}."
+        _norm(sd, lx + "layer_norm1", lp["layer_norm1"])
+        _norm(sd, lx + "layer_norm2", lp["layer_norm2"])
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(sd, f"{lx}self_attn.{n}", lp[n])
+        _dense(sd, lx + "mlp.fc1", lp["fc1"])
+        _dense(sd, lx + "mlp.fc2", lp["fc2"])
+    scale = np.asarray(pre["scale"])
+    sd[p + "post_layernorm.weight"] = _t(np.ones_like(scale))
+    sd[p + "post_layernorm.bias"] = _t(np.zeros_like(scale))
+    return sd
+
+
+def injection_from_jax(inj_params: Mapping, config: UNetConfig) -> StateDict:
+    """JAX injection subtree (``down_{i}_attn_{j}`` / ``mid_attn`` /
+    ``up_{i}_attn_{j}`` -> ``block_0`` -> ``sketch_*``) -> the state dict of
+    the port's ``unet.sat``: the reference's ``sketch_attn_model.pt``
+    layout."""
+    outers = []
+    for i, ca in enumerate(config.cross_attn):
+        outers += [f"down_{i}_attn_{j}" for j in range(config.layers_per_block)] if ca else []
+    outers.append("mid_attn")
+    for i, ca in enumerate(reversed(config.cross_attn)):
+        outers += [f"up_{i}_attn_{j}" for j in range(config.layers_per_block + 1)] if ca else []
+    sd: StateDict = {}
+    for outer, (path, _) in zip(outers, injection_sites(config)):
+        b, n = inj_params[outer]["block_0"], sat_name(path)
+        if "sketch_proj" in b:
+            _dense(sd, n + ".sketch_proj", b["sketch_proj"])
+        _norm(sd, n + ".sketch_norm", b["sketch_norm"])
+        for proj in ("to_q", "to_k", "to_v"):
+            _dense(sd, f"{n}.sketch_attn.{proj}", b["sketch_attn"][proj])
+        _dense(sd, n + ".sketch_attn.to_out.0", b["sketch_attn"]["to_out"])
+        sd[n + ".sketch_conv.weight"] = _t(np.asarray(b["sketch_conv"]["kernel"]).T[:, :, None])
+        sd[n + ".sketch_conv.bias"] = _t(b["sketch_conv"]["bias"])
+    return sd
+
+
+def safety_checker_from_jax(p: Any, num_layers: int = 24) -> StateDict:
+    """JAX ``SafetyCheckerParams`` (any object with its field names) -> port
+    ``SafetyChecker`` state dict (diffusers ``StableDiffusionSafetyChecker``
+    names)."""
+    sd = clip_vision_from_jax(p.vision, num_layers, prefix="vision_model.vision_model.")
+    sd["vision_model.vision_model.post_layernorm.weight"] = _t(p.post_ln_scale)
+    sd["vision_model.vision_model.post_layernorm.bias"] = _t(p.post_ln_bias)
+    sd["visual_projection.weight"] = _t(np.asarray(p.projection).T)
+    sd["concept_embeds"] = _t(p.concept_embeds)
+    sd["concept_embeds_weights"] = _t(p.concept_thresholds)
+    sd["special_care_embeds"] = _t(p.special_care_embeds)
+    sd["special_care_embeds_weights"] = _t(p.special_care_thresholds)
     return sd

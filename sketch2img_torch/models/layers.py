@@ -2,7 +2,10 @@
 ``sketch2img_tpu/models/layers.py``, in NCHW with diffusers parameter names.
 
 GroupNorm and LayerNorm compute their statistics in fp32 whatever the
-parameter dtype and return the input dtype. The TPU-specific conv lowerings
+parameter dtype and return the input dtype. Every GroupNorm, and the SiLU
+that follows it where there is one, goes through ``ops.groupnorm`` (the
+fused GroupNorm+SiLU kernel on a CUDA tensor, its plain version on a CPU
+one), so its input must be contiguous NCHW. The TPU-specific conv lowerings
 of the JAX package (``ops/conv2d.py``, ``ops/subpixel.py``, ``Conv1x1``) are
 plain ``nn.Conv2d`` here.
 """
@@ -16,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sketch2img_torch.ops import groupnorm as gn
 from sketch2img_torch.ops.attention import multi_head_attention
 
 
@@ -36,11 +40,14 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, *, flip_sin_to_cos: bo
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm with fp32 statistics; output in the input dtype."""
+    """GroupNorm with fp32 statistics; output in the input dtype.
+    ``silu=True`` applies SiLU in fp32 before the cast (one fused pass). A
+    channels-last input (a 1x1 conv over permuted tokens may return one) is
+    copied to contiguous NCHW first, the layout the kernel takes."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        return gn.group_norm_silu(x.contiguous(), self.weight, self.bias, self.num_groups,
+                                  self.eps, silu)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -69,10 +76,10 @@ class ResnetBlock(nn.Module):
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x, silu=True))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h, silu=True))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h

@@ -15,7 +15,6 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from sketch2img_torch.models.layers import Downsample, GroupNorm, ResnetBlock, Upsample
 from sketch2img_torch.ops.attention import multi_head_attention
@@ -104,7 +103,7 @@ class Encoder(nn.Module):
         for blk in self.down_blocks:
             h = blk(h)
         h = self.mid_block(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -123,7 +122,7 @@ class Decoder(nn.Module):
         h = self.mid_block(self.conv_in(z))
         for blk in self.up_blocks:
             h = blk(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h, silu=True))
 
 
 class AutoencoderKL(nn.Module):

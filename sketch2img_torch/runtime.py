@@ -2,11 +2,12 @@
 user-facing sketch-guided pipeline — counterpart of ``sketch2img_tpu/runtime.py``.
 
 ``SDComponents`` holds the modules (UNet, VAE, CLIP text encoder, optional
-LGP), the schedule and the tokenizer, all on one device, frozen
+LGP and safety checker), the schedule and the tokenizer, all on one device, frozen
 (``requires_grad_(False)``) and in eval mode: the guided backward then
 computes the gradient with respect to the latent and no weight gradient.
-``SketchGuidedPipeline.__call__`` is the reference demo's call signature.
-Everything defaults to ``device="cuda"`` and raises without a GPU.
+``SketchGuidedPipeline.__call__`` is the reference demo's call signature;
+when a safety checker is loaded it runs on every generation and blacks out
+flagged images (``last_nsfw_flags``). Everything defaults to ``device="cuda"`` and raises without a GPU.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import torch
 
 from sketch2img_torch.core.schedulers import DiffusionSchedule, make_schedule
 from sketch2img_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder, SD15_TEXT_CONFIG
+from sketch2img_torch.models.clip_vision import VIT_L14_CONFIG, CLIPVisionConfig
 from sketch2img_torch.models.lgp import LatentEdgePredictor
+from sketch2img_torch.models.safety_checker import SafetyChecker
 from sketch2img_torch.models.unet import SD15_CONFIG, UNet2DCondition, UNetConfig, tap_channels
 from sketch2img_torch.models.vae import SD15_VAE_CONFIG, AutoencoderKL, VAEConfig, sample_latent
 from sketch2img_torch.pipelines.sketch_guided import sample_sketch_guided
@@ -78,6 +81,7 @@ class SDComponents:
     device: torch.device
     tokenizer: Any = None
     lgp: Optional[LatentEdgePredictor] = None
+    safety_checker: Optional[SafetyChecker] = None
 
     @classmethod
     def random_init(
@@ -121,8 +125,8 @@ class SDComponents:
         device: Union[str, torch.device] = "cuda",
     ) -> "SDComponents":
         """Load a diffusers-format SD1.x directory (unet/, vae/, text_encoder/,
-        tokenizer/) with strict ``load_state_dict``. The safety checker is not
-        loaded (it is not ported yet)."""
+        tokenizer/ and, where present, safety_checker/) with strict
+        ``load_state_dict``."""
         from sketch2img_torch.data.tokenizer import CLIPBPETokenizer
 
         dev = resolve_device(device)
@@ -140,7 +144,50 @@ class SDComponents:
         tokenizer = CLIPBPETokenizer.from_pretrained(tok_dir) if os.path.isdir(tok_dir) else None
         c = cls(unet=_frozen(unet, dev), vae=_frozen(vae, dev), text_encoder=_frozen(text, dev),
                 schedule=make_schedule(), device=dev, tokenizer=tokenizer)
+        if os.path.isdir(os.path.join(model_path, "safety_checker")):
+            c.load_safety_checker(os.path.join(model_path, "safety_checker"))
         return c.cast_params(compute_dtype)
+
+    def load_safety_checker(self, path: str,
+                            vision_config: CLIPVisionConfig = VIT_L14_CONFIG) -> None:
+        """Load the diffusers ``safety_checker/`` weights (a directory with
+        model.safetensors, model.bin or pytorch_model.bin, or a file path
+        without its extension) strictly, in the UNet's dtype."""
+        base = path
+        if os.path.isdir(path):
+            base = os.path.join(path, "model")
+            if not any(os.path.exists(base + e) for e in (".safetensors", ".bin")):
+                base = os.path.join(path, "pytorch_model")
+        sd = _clean(_load_state_dict(base))
+        n_concepts, proj_dim = sd["concept_embeds"].shape
+        with torch.device("meta"):
+            checker = SafetyChecker(vision_config, proj_dim, n_concepts,
+                                    sd["special_care_embeds"].shape[0])
+        checker.load_state_dict(sd, strict=True, assign=True)
+        self.safety_checker = _frozen(checker, self.device).to(self.unet.dtype)
+
+    def random_safety_checker(self, seed: int = 0,
+                              vision_config: CLIPVisionConfig = VIT_L14_CONFIG) -> None:
+        """A safety checker on seeded random weights (for tests and the card
+        while the published weights are not in the repository)."""
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices), torch.device(self.device):
+            torch.manual_seed(seed)
+            checker = SafetyChecker(vision_config)
+        self.safety_checker = _frozen(checker, self.device).to(self.unet.dtype)
+
+    def run_safety_checker(self, images01: torch.Tensor
+                           ) -> Tuple[torch.Tensor, Optional[np.ndarray]]:
+        """(B, 3, H, W) in [0, 1] -> (images with flagged ones blacked out,
+        (B,) bool flags), or (images, None) when no checker is loaded."""
+        if self.safety_checker is None:
+            return images01, None
+        img, flags = self.safety_checker.check_images(images01)
+        flags = flags.cpu().numpy()
+        if flags.any():
+            print("Potential NSFW content was detected in one or more images. "
+                  "A black image will be returned instead.")
+        return img, flags
 
     def load_lgp_torch(self, path: str) -> None:
         """Load the published ``edge_predictor.pt`` strictly (kept fp32)."""
@@ -151,10 +198,11 @@ class SDComponents:
         self.lgp = _frozen(lgp, self.device)
 
     def cast_params(self, dtype: torch.dtype = torch.bfloat16) -> "SDComponents":
-        """Cast the UNet, VAE and text encoder to ``dtype`` once; the LGP stays
-        fp32."""
-        for m in (self.unet, self.vae, self.text_encoder):
-            m.to(dtype)
+        """Cast the UNet, VAE, text encoder and safety checker to ``dtype``
+        once; the LGP stays fp32."""
+        for m in (self.unet, self.vae, self.text_encoder, self.safety_checker):
+            if m is not None:
+                m.to(dtype)
         return self
 
     @property
@@ -169,6 +217,7 @@ class SketchGuidedPipeline:
 
     def __init__(self, components: SDComponents):
         self.c = components
+        self.last_nsfw_flags: Optional[np.ndarray] = None
 
     @property
     def device(self) -> torch.device:
@@ -306,5 +355,6 @@ class SketchGuidedPipeline:
                 callback=callback, callback_steps=callback_steps)
         with torch.no_grad():
             img = latents_to_image(self.c.vae, latents)
+        img, self.last_nsfw_flags = self.c.run_safety_checker(img)
         img = img.permute(0, 2, 3, 1).float().cpu().numpy()
         return img[0] if single else img

@@ -19,7 +19,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-#: compiler output of the last build in this process (ptxas statistics when
+#: compiler output of every build in this process (ptxas statistics when
 #: built with ``verbose=True``)
 LAST_BUILD_LOG: List[str] = []
 
@@ -57,7 +57,6 @@ def build_library(name: str, sources: Sequence[str], headers: Sequence[str] = ()
         return lib
 
     nvcc = find_nvcc()
-    LAST_BUILD_LOG.clear()
     jobs = []
     for src in srcs:
         obj = os.path.join(out_dir, f"{name}_{tag}_{os.path.basename(src)}.o")

@@ -19,14 +19,23 @@ from sketch2img_tpu.core.convert import (
     convert_torch_unet,
     convert_torch_vae,
 )
+from sketch2img_tpu.core.export import convert_torch_sat
+from sketch2img_tpu.models.clip_vision import convert_torch_clip_vision
+from sketch2img_tpu.models.safety_checker import convert_torch_safety_checker
 from sketch2img_tpu.models.unet import UNetConfig as JUNetConfig
 from sketch2img_tpu.models.vae import VAEConfig as JVAEConfig
 from sketch2img_torch.core.convert import (
     clip_text_from_jax,
+    clip_vision_from_jax,
+    injection_from_jax,
     lgp_from_jax,
+    load_params_npz,
+    safety_checker_from_jax,
     unet_from_jax,
     vae_from_jax,
 )
+from sketch2img_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+from sketch2img_torch.models.safety_checker import SafetyChecker
 from sketch2img_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from sketch2img_torch.models.lgp import LatentEdgePredictor
 from sketch2img_torch.models.unet import UNet2DCondition, UNetConfig
@@ -87,6 +96,55 @@ def test_lgp_round_trip_is_exact():
             bn.running_var.uniform_(0.5, 2)
     sd = m.state_dict()
     back = lgp_from_jax(*convert_torch_lgp(sd))
+    _assert_same(back, sd)
+
+
+VISION_KW = dict(image_size=28, patch_size=14, hidden_size=32, num_layers=2, num_heads=4,
+                 intermediate_size=64)
+
+
+def test_clip_vision_round_trip_is_exact():
+    """The JAX tree has no post_layernorm: it comes back as the identity,
+    which is what a fresh module holds."""
+    torch.manual_seed(5)
+    sd = CLIPVisionEncoder(CLIPVisionConfig(**VISION_KW)).state_dict()
+    back = clip_vision_from_jax(convert_torch_clip_vision(sd, num_layers=2), num_layers=2)
+    _assert_same(back, sd)
+
+
+@pytest.mark.parametrize("variant", ["clip", "sketch"])
+def test_injection_round_trip_is_exact_and_loads_strictly(variant, tmp_path):
+    """``unet.sat`` state dict (the sketch_attn_model.pt layout) -> JAX
+    ``convert_torch_sat`` -> ``injection_from_jax``; also through the JAX
+    package's npz export format."""
+    kw = dict(UNET_KW, injection=variant, injection_context_dim=16)
+    torch.manual_seed(6)
+    unet = UNet2DCondition(UNetConfig(**kw))
+    sd = unet.sat.state_dict()
+    assert "sketch_attn_down_blocks_0_attentions_0_transformer_blocks_0.sketch_norm.weight" in sd
+    assert any(k.endswith("sketch_proj.weight") for k in sd) == (variant == "clip")
+    tree = convert_torch_sat(sd, JUNetConfig(**kw))
+    back = injection_from_jax(tree, UNetConfig(**kw))
+    _assert_same(back, sd)
+    unet.sat.load_state_dict(back, strict=True)
+
+    def flat(node, path=()):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from flat(v, path + (k,))
+            else:
+                yield "/".join(path + (k,)), np.asarray(v)
+
+    np.savez(tmp_path / "inj.npz", **dict(flat(tree)))
+    _assert_same(injection_from_jax(load_params_npz(str(tmp_path / "inj.npz")),
+                                    UNetConfig(**kw)), sd)
+
+
+def test_safety_checker_round_trip_is_exact():
+    torch.manual_seed(7)
+    sd = SafetyChecker(CLIPVisionConfig(**VISION_KW), projection_dim=16).state_dict()
+    back = safety_checker_from_jax(convert_torch_safety_checker(sd, num_layers=2),
+                                   num_layers=2)
     _assert_same(back, sd)
 
 
