@@ -14,11 +14,19 @@ Phases, each printing its own lines:
               every shape the two paths give it and time the kernel, the
               plain version and one PyTorch call as a yardstick (the port
               never calls it): flash forward, backward dQ and dK/dV at the
-              sketch-guided shapes plus a ragged and a kv_len case, the flash
-              forward at the injection path's shapes (batch 16 self- and
-              concat attention, the ViT's 257 tokens), and the GroupNorm
-              kernel at every (B, C, H, W, eps, silu) recorded from one pass
-              of each model on both paths, plus real activations;
+              sketch-guided shapes (q/k/v as the model passes them: heads
+              views of (B, N, H*d) projections) plus a ragged and a kv_len
+              case, one shape of every head-dim bucket, a head dim TMA
+              cannot take in place, the flash forward at the injection
+              path's shapes (batch 16 self- and concat attention, the ViT's
+              257 tokens), and the GroupNorm kernel at every (B, C, H, W,
+              eps, silu) recorded from one pass of each model on both paths,
+              plus real activations. Times: "ms" back-to-back calls between
+              CUDA events (host work included), "device_ms" the replay of
+              CUDA graphs of the same calls (device time alone; for SDPA's
+              backward, its kernels' durations from torch.profiler); the flash
+              forward's host time a call at (1, 8, 256, 160) is logged.
+              ("--phases build,flash" runs the flash part alone);
   3. e2e      full-width SD1.5 (seeded random weights): the kernels against
               the plain attention path, then against the plain GroupNorm
               path, inside one guided UNet pass; then a 512x512, 50-step
@@ -51,6 +59,9 @@ import traceback
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate (data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 bandwidth (data sheet)
+# H100 SXM special-function units: 16 ex2 a clock on each of 132 SMs at
+# 1.83 GHz, the figure the FlashAttention-3 paper gives (~3.9e12 a second)
+PEAK_EXP2 = 3.9e12
 HEADS = 8
 # the UNet self-attention sites (tokens, head dim), five of each per forward
 MAIN_SHAPES = ((4096, 40), (1024, 80), (256, 160))
@@ -105,6 +116,8 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Back-to-back calls between two CUDA events: device time plus
+    whatever host work a call adds when the host is the slower side."""
     import torch
 
     for _ in range(warmup):
@@ -119,19 +132,86 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time of one call: ``reps`` calls captured into a CUDA graph
+    and replayed (best of three replays), so no host work is in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    del graph
+    return best
+
+
+def profiled_device_ms(fn, reps: int = 5) -> float:
+    """Device time of one call as torch.profiler sees it: the summed
+    durations of the kernels the calls launched, over ``reps`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host time a call: the calls are timed on the host clock without a
+    synchronise (meaningful where the device is the faster side)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def bound_ms(kind: str, b: int, h: int, nq: int, nk: int, kv_len: int, d: int) -> tuple:
-    """Least time on the card: max(tensor-core flops / peak, bytes / HBM rate)."""
+    """Least time on the card, the largest of tensor-core flops / peak, bytes
+    / HBM rate and exponentials / special-function rate -> (ms, bound_by,
+    term): bound_by "operations" or "bytes", term "tensor", "exp" or
+    "bytes". The forward, dQ and dK/dV each exponentiate every logit once
+    (b h nq kv_len); keys past kv_len are neither read nor computed."""
     bh = b * h
     e = 2  # bf16
     if kind == "flash_fwd":
         flops = 4 * bh * nq * kv_len * d
-        nbytes = bh * (2 * nq * d + 2 * nk * d) * e + bh * nq * 4
+        nbytes = bh * (2 * nq * d + 2 * kv_len * d) * e + bh * nq * 4
     else:
         flops = (6 if kind == "flash_bwd_dq" else 8) * bh * nq * kv_len * d
         outs = nq * d if kind == "flash_bwd_dq" else 2 * nk * d
-        nbytes = bh * (2 * nq * d + 2 * nk * d + outs) * e + bh * nq * 8
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        nbytes = bh * (2 * nq * d + 2 * kv_len * d + outs) * e + bh * nq * 8
+    terms = {"tensor": flops / PEAK_BF16_FLOPS * 1e3, "bytes": nbytes / PEAK_HBM_BYTES * 1e3,
+             "exp": bh * nq * kv_len / PEAK_EXP2 * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
 def gn_bound_ms(numel: int, channels: int) -> tuple:
@@ -141,8 +221,9 @@ def gn_bound_ms(numel: int, channels: int) -> tuple:
 
 
 def new_entry() -> dict:
-    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "bound_ms": 0.0, "bound_by": None, "shapes": []}
+    return {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "library_device_ms": 0.0, "bound_ms": 0.0, "bound_by": None, "bound_term": None,
+            "shapes": []}
 
 
 # ---------------------------------------------------------------------------
@@ -150,22 +231,33 @@ def new_entry() -> dict:
 # ---------------------------------------------------------------------------
 
 
+# one shape of every head-dim bucket the kernels are compiled for (d = 24 ->
+# 32, 40 -> 48, 64, 72 -> 80, 96, 112 -> 128, 160, 176 -> 192, 256)
+BUCKET_DIMS = (24, 40, 64, 72, 96, 112, 160, 176, 256)
+
+
 def flash_cases():
-    """(tag, B, H, nq, nk, kv_len, d, with_backward) at every flash shape of
-    the two paths."""
+    """(tag, B, H, nq, nk, kv_len, d, with_backward, layout) at every flash
+    shape of the two paths, with q/k/v laid out as the model passes them
+    ("heads": (B, H, N, d) views of (B, N, H*d) projections), plus a ragged
+    and a kv_len case, every head-dim bucket, and a head dim TMA cannot read
+    in place ("bhnd": contiguous (B, H, N, d))."""
     cases = []
     for n, d in MAIN_SHAPES:
         for b in (1, 2):
-            cases.append(("main", b, HEADS, n, n, None, d, b == 1))
-    cases.append(("ragged", 1, HEADS, 300, 300, None, 40, True))
-    cases.append(("kv_len", 1, HEADS, 4096, 4480, 4353, 40, True))
+            cases.append(("main", b, HEADS, n, n, None, d, b == 1, "heads"))
+    cases.append(("ragged", 1, HEADS, 300, 300, None, 40, True, "heads"))
+    cases.append(("kv_len", 1, HEADS, 4096, 4480, 4353, 40, True, "heads"))
     for n, d in MAIN_SHAPES:
-        cases.append(("inject_attn1", 2 * INJ_BATCH, HEADS, n, n, None, d, False))
+        cases.append(("inject_attn1", 2 * INJ_BATCH, HEADS, n, n, None, d, False, "heads"))
         cases.append(("inject_sketch_attn", 2 * INJ_BATCH, HEADS, n, n + CLIP_PAD,
-                      n + VIT_TOKENS, d, False))
-    cases.append(("vit_sketch", 1, VIT_HEADS, VIT_TOKENS, VIT_TOKENS, None, VIT_D, False))
+                      n + VIT_TOKENS, d, False, "heads"))
+    cases.append(("vit_sketch", 1, VIT_HEADS, VIT_TOKENS, VIT_TOKENS, None, VIT_D, False, "heads"))
     cases.append(("vit_safety", INJ_BATCH, VIT_HEADS, VIT_TOKENS, VIT_TOKENS, None, VIT_D,
-                  False))
+                  False, "heads"))
+    for d in BUCKET_DIMS:
+        cases.append(("bucket", 1, 2, 256, 333, 301, d, True, "bhnd"))
+    cases.append(("tma_copy", 1, 2, 200, 200, None, 36, True, "bhnd"))
     return cases
 
 
@@ -176,12 +268,15 @@ def check_flash(fa, torch) -> dict:
     per_kernel = {k: new_entry() for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     failures = []
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+    def make(b, h, n, d, layout):
+        if layout == "heads":
+            x = torch.randn(b, n, h * d, generator=gen, device="cuda").to(torch.bfloat16)
+            return x.view(b, n, h, d).transpose(1, 2)
+        return torch.randn(b, h, n, d, generator=gen, device="cuda").to(torch.bfloat16)
 
-    for tag, b, h, nq, nk, kv_len, d, with_bwd in flash_cases():
-        q, k, v = randn(b, h, nq, d), randn(b, h, nk, d), randn(b, h, nk, d)
-        do = randn(b, h, nq, d)
+    for tag, b, h, nq, nk, kv_len, d, with_bwd, layout in flash_cases():
+        q, k, v = make(b, h, nq, d, layout), make(b, h, nk, d, layout), make(b, h, nk, d, layout)
+        do = make(b, h, nq, d, layout)
         scale = d ** -0.5
         kvl = nk if kv_len is None else kv_len
         ks, vs = k[:, :, :kvl], v[:, :, :kvl]
@@ -190,10 +285,14 @@ def check_flash(fa, torch) -> dict:
         o_ref, lse_ref = fa.flash_forward_plain(q, k, v, scale, kv_len)
         torch.cuda.synchronize()
         results = {"flash_fwd": [("O", o, o_ref), ("LSE", lse, lse_ref)]}
+        sdpa = lambda: F.scaled_dot_product_attention(q, ks, vs, scale=scale)  # noqa: E731
+        fwd = lambda: fa.flash_forward(q, k, v, scale, kv_len)  # noqa: E731
         times = {"flash_fwd": (
-            time_ms(lambda: fa.flash_forward(q, k, v, scale, kv_len)),
+            time_ms(fwd), graph_ms(fwd),
             time_ms(lambda: fa.flash_forward_plain(q, k, v, scale, kv_len), reps=5),
-            time_ms(lambda: F.scaled_dot_product_attention(q, ks, vs, scale=scale)))}
+            time_ms(sdpa), graph_ms(sdpa))}
+        if (b, h, nq, d) == (1, HEADS, 256, 160) and tag == "main":
+            log(f"  flash_forward host time a call at (1, 8, 256, 160): {host_us(fwd):.2f} us")
         if with_bwd:
             dq, dk, dv = fa.flash_backward(q, k, v, o, lse, do, scale, kv_len)
             # the reference takes the plain forward's O and LSE, so an error in
@@ -206,15 +305,23 @@ def check_flash(fa, torch) -> dict:
             out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
             lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                                           retain_graph=True))
+            # SDPA's backward on the device alone (its kernels' durations; a
+            # graph would have to hold autograd's work too)
+            lib_bwd_dev = profiled_device_ms(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True))
             t_bwd = time_ms(lambda: fa.flash_backward(q, k, v, o, lse, do, scale, kv_len))
             t_plain = time_ms(lambda: fa.flash_backward_plain(q, k, v, o, lse, do, scale,
                                                               kv_len), reps=5)
             # one flash_backward call launches both kernels; split its time by
             # timing each kernel alone through the C entry points
-            t_dq, t_dkv = time_split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl)
-            times["flash_bwd_dq"] = (t_dq, t_plain, lib_bwd)
-            times["flash_bwd_dkv"] = (t_dkv, t_plain, lib_bwd)
-            log(f"  backward pair {t_bwd:.4f} ms = dq {t_dq:.4f} + dkv {t_dkv:.4f} (alone)")
+            run_dq, run_dkv = split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl)
+            t_dq, t_dkv = time_ms(run_dq), time_ms(run_dkv)
+            g_dq, g_dkv = graph_ms(run_dq), graph_ms(run_dkv)
+            times["flash_bwd_dq"] = (t_dq, g_dq, t_plain, lib_bwd, lib_bwd_dev)
+            times["flash_bwd_dkv"] = (t_dkv, g_dkv, t_plain, lib_bwd, lib_bwd_dev)
+            log(f"  backward pair {t_bwd:.4f} ms = dq {t_dq:.4f} + dkv {t_dkv:.4f} (alone);"
+                f" device dq {g_dq:.4f} + dkv {g_dkv:.4f} against SDPA's backward"
+                f" {lib_bwd_dev:.4f}")
 
         for name, outs in results.items():
             checks = []
@@ -226,14 +333,14 @@ def check_flash(fa, torch) -> dict:
                 checks.append((label, t_err, t_ref, t_tol, t_ok))
             err = max(c[1] for c in checks)
             ok = all(c[4] for c in checks)
-            kms, pms, lms = times[name]
-            bms, bby = bound_ms(name, b, h, nq, nk, kvl, d)
+            kms, dms, pms, lms, ldms = times[name]
+            bms, bby, bterm = bound_ms(name, b, h, nq, nk, kvl, d)
             detail = " ".join(f"{lb}:err={e:.3e},max|ref|={m:.3e},tol={t:.3e}"
                               for lb, e, m, t, _ in checks)
-            log(f"kernel={name} case={tag} shape=(B={b},H={h},nq={nq},nk={nk},d={d})"
+            log(f"kernel={name} case={tag} shape=(B={b},H={h},nq={nq},nk={nk},d={d}) {layout}"
                 f" kv_len={kvl} {detail} ok={ok}"
-                f" ms={kms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f}"
-                f" bound_ms={bms:.4f} ({bby})")
+                f" ms={kms:.4f} device_ms={dms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f}"
+                f" library_device_ms={ldms:.4f} bound_ms={bms:.4f} ({bterm})")
             if not ok:
                 failures.append(f"{name} {tag} B={b} nq={nq} d={d}: {detail}")
             pk = per_kernel[name]
@@ -241,14 +348,17 @@ def check_flash(fa, torch) -> dict:
             if tag == "main" and b == 1:
                 # summed over the kernel's sites in one batch-1 UNet pass
                 n_sites = SITES[name][nq]
-                pk["ms"] += n_sites * kms
-                pk["plain_ms"] += n_sites * pms
-                pk["library_ms"] += n_sites * lms
-                pk["bound_ms"] += n_sites * bms
+                for key, val in (("ms", kms), ("device_ms", dms), ("plain_ms", pms),
+                                 ("library_ms", lms), ("library_device_ms", ldms),
+                                 ("bound_ms", bms)):
+                    pk[key] += n_sites * val
                 pk["bound_by"] = pk["bound_by"] or bby
+                pk["bound_term"] = pk["bound_term"] or bterm
             pk["shapes"].append({"case": tag, "B": b, "H": h, "nq": nq, "nk": nk,
-                                 "kv_len": kvl, "d": d, "ms": kms, "plain_ms": pms,
-                                 "library_ms": lms, "bound_ms": bms})
+                                 "kv_len": kvl, "d": d, "layout": layout, "ms": kms,
+                                 "device_ms": dms, "plain_ms": pms, "library_ms": lms,
+                                 "library_device_ms": ldms, "bound_ms": bms,
+                                 "bound_term": bterm})
         del q, k, v, do, o, lse, results
         torch.cuda.empty_cache()
     if failures:
@@ -256,23 +366,32 @@ def check_flash(fa, torch) -> dict:
     return per_kernel
 
 
-def time_split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl):
+def split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl):
+    """The dQ and dK/dV launches of one flash_backward, each callable alone
+    through the C entry points (on the stream current at the call)."""
     lib = fa.load_library()
+    prepare = getattr(fa, "prepare_operand", lambda x: (x, False))
+    q, k, v, do = (prepare(x)[0] for x in (q, k, v, do))
     b, h, nq, d = q.shape
     nk = k.shape[2]
     delta = (do.float() * o.float()).sum(-1).contiguous()
-    dq = torch.empty_like(q)
-    dk, dv = torch.empty_like(k), torch.empty_like(k)
-    stream = torch.cuda.current_stream().cuda_stream
+    lse = lse.float().contiguous()
+    dq = fa._heads_merged(b, h, nq, d, q)
+    dk, dv = fa._heads_merged(b, h, nk, d, q), fa._heads_merged(b, h, nk, d, q)
     view = fa._view
-    common = (q.device.index, stream, *view(q), *view(k), *view(v), *view(do),
-              lse.data_ptr(), delta.data_ptr())
     tail = (b, h, nq, nk, d, kvl, float(scale), 0)
-    t_dq = time_ms(lambda: fa._launch("flash_bwd_dq", lib.flash_bwd_dq, *common,
-                                      *view(dq), *tail))
-    t_dkv = time_ms(lambda: fa._launch("flash_bwd_dkv", lib.flash_bwd_dkv, *common,
-                                       *view(dk), *view(dv), *tail))
-    return t_dq, t_dkv
+
+    def common():
+        return (q.device.index, torch.cuda.current_stream().cuda_stream, *view(q), *view(k),
+                *view(v), *view(do), lse.data_ptr(), delta.data_ptr())
+
+    def run_dq():
+        fa._launch("flash_bwd_dq", lib.flash_bwd_dq, *common(), *view(dq), *tail)
+
+    def run_dkv():
+        fa._launch("flash_bwd_dkv", lib.flash_bwd_dkv, *common(), *view(dk), *view(dv), *tail)
+
+    return run_dq, run_dkv
 
 
 def record_gn_calls(stack, gn, torch) -> tuple:
@@ -372,34 +491,38 @@ def check_groupnorm(stack, gn, torch) -> dict:
             return F.silu(out) if silu else out
 
         big = x.numel() > 2 ** 26
-        kms = time_ms(lambda: gn.group_norm_silu_kernel(x, w, b, 32, eps, silu))
+        kernel = lambda: gn.group_norm_silu_kernel(x, w, b, 32, eps, silu)  # noqa: E731
+        kms, dms = time_ms(kernel), graph_ms(kernel, reps=3 if big else 10)
         pms = time_ms(lambda: gn.group_norm_silu_plain(x, w, b, 32, eps, silu),
                       reps=3 if big else 5)
-        lms = time_ms(library)
+        lms, ldms = time_ms(library), graph_ms(library, reps=3 if big else 10)
         bms, bby = gn_bound_ms(x.numel(), c)
         log(f"kernel=groupnorm_silu case={tag} shape={shape} eps={eps:g} silu={silu}"
             f" err={err:.3e} mean_err={mean_err:.3e} max|plain|={ref:.3e}"
             f" tol={GN_TOL_MAX * ref:.3e}/{GN_TOL_MEAN * ref:.3e} ok={ok}"
-            f" ms={kms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f} bound_ms={bms:.4f} ({bby})")
+            f" ms={kms:.4f} device_ms={dms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f}"
+            f" library_device_ms={ldms:.4f} bound_ms={bms:.4f} ({bby})")
         if not ok:
             failures.append(f"groupnorm_silu {tag} {shape} eps={eps} silu={silu}: err={err:.3e}"
                             f" mean={mean_err:.3e} max|plain|={ref:.3e}")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry["bound_by"] = bby
-        timed[(shape, eps, silu)] = (kms, pms, lms, bms)
+        entry["bound_by"] = entry["bound_term"] = bby
+        timed[(shape, eps, silu)] = (kms, dms, pms, lms, ldms, bms)
         entry["shapes"].append({"case": tag, "shape": list(shape), "eps": eps, "silu": silu,
-                                "ms": kms, "plain_ms": pms, "library_ms": lms,
+                                "ms": kms, "device_ms": dms, "plain_ms": pms,
+                                "library_ms": lms, "library_device_ms": ldms,
                                 "bound_ms": bms})
         del x, y, p, diff
         torch.cuda.empty_cache()
     if failures:
         raise PhaseError("; ".join(failures))
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
     for name, calls in per_pass.items():
-        tot = [sum(timed[call][i] for call in calls) for i in range(4)]
-        log(f"  groupnorm_silu summed over one {name} pass ({len(calls)} calls): ms={tot[0]:.4f}"
-            f" plain_ms={tot[1]:.4f} library_ms={tot[2]:.4f} bound_ms={tot[3]:.4f}")
+        tot = dict(zip(keys, (sum(timed[call][i] for call in calls) for i in range(6))))
+        log(f"  groupnorm_silu summed over one {name} pass ({len(calls)} calls): "
+            + " ".join(f"{k_}={v_:.4f}" for k_, v_ in tot.items()))
         if name == "unet_b1":  # the flash kernels' convention: one batch-1 UNet pass
-            entry["ms"], entry["plain_ms"], entry["library_ms"], entry["bound_ms"] = tot
+            entry.update(tot)
     return entry
 
 
@@ -463,11 +586,12 @@ def main(argv=None) -> int:
 
                 for chunk in LAST_BUILD_LOG:
                     log(chunk)
-        if "kernels" in phases:
+        if "kernels" in phases or "flash" in phases:
             t0 = time.time()
             per_kernel = check_flash(fa, torch)
             log(f"  flash kernels checked, {time.time() - t0:.2f} s")
-            per_kernel["groupnorm_silu"] = check_groupnorm(stack, gn, torch)
+            if "kernels" in phases:
+                per_kernel["groupnorm_silu"] = check_groupnorm(stack, gn, torch)
             log(f"phase kernels: ok, {time.time() - t0:.2f} s")
         if "e2e" in phases:
             t0 = time.time()
@@ -491,6 +615,8 @@ def main(argv=None) -> int:
         # the paths that ran); without one there is no count
         entries = []
         for name in REPLACES:
+            if name not in per_kernel:
+                continue
             pk = per_kernel[name]
             by_path = {path: per_path[name] for path, per_path in launches.items()}
             entries.append({
@@ -498,9 +624,11 @@ def main(argv=None) -> int:
                 "replaces": REPLACES[name],
                 "launches": sum(by_path.values()) if by_path else None,
                 "launches_by_path": by_path,
-                "max_abs_err": pk["max_abs_err"], "ms": pk["ms"], "plain_ms": pk["plain_ms"],
-                "bound_ms": pk["bound_ms"], "bound_by": pk["bound_by"],
-                "library_ms": pk["library_ms"], "shapes": pk["shapes"],
+                "max_abs_err": pk["max_abs_err"], "ms": pk["ms"], "device_ms": pk["device_ms"],
+                "plain_ms": pk["plain_ms"], "bound_ms": pk["bound_ms"],
+                "bound_by": pk["bound_by"], "bound_term": pk["bound_term"],
+                "library_ms": pk["library_ms"], "library_device_ms": pk["library_device_ms"],
+                "shapes": pk["shapes"],
             })
         log(json.dumps({"kernels": entries}))
     log(card)
@@ -600,6 +728,15 @@ def counts(fa, gn) -> dict:
     return {**fa.LAUNCHES, **gn.LAUNCHES}
 
 
+def check_no_copies(fa, path: str) -> None:
+    """The flash wrapper copied no operand for TMA on the path's counted run
+    (every q/k/v/dO there is a heads-view TMA reads in place)."""
+    copies = dict(getattr(fa, "TMA_COPIES", {}))
+    log(f"  {path}: operand copies for TMA {copies} (expected all 0)")
+    if any(copies.values()):
+        raise PhaseError(f"{path}: the flash wrapper copied operands for TMA: {copies}")
+
+
 def reset_counts(fa, gn) -> None:
     fa.reset_launch_counts()
     gn.reset_launch_counts()
@@ -674,6 +811,8 @@ def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
                    seed=1234, sketch_image=sketch, callback=cb if per_step else None)
         torch.cuda.synchronize()
         launches = counts(fa, gn) if count else None
+        if count:
+            check_no_copies(fa, "sketch-guided request")
         return img, launches, start, marks, time.perf_counter()
 
     run(4, False)  # warm-up: cuDNN plans for both batch sizes, allocator
@@ -731,6 +870,7 @@ def run_inject(stack, fa, gn, torch) -> dict:
         torch.cuda.synchronize()
         end = time.perf_counter()
         launches = counts(fa, gn)
+        check_no_copies(fa, "injection request")
         peak = torch.cuda.max_memory_allocated() / 2**30
         start2 = time.perf_counter()
         pipe(prompts, num_inference_steps=INJ_STEPS, **kw)

@@ -123,7 +123,8 @@ int launch_dq(const Args& a, cudaStream_t stream) {
   constexpr int BQ = 64, BK = 64, P = DP + 8, PT = BK + 8;
   const size_t smem = (size_t)(2 * BQ * P + 2 * BK * P + DP * PT) * sizeof(__nv_bfloat16);
   dim3 grid((a.nq + BQ - 1) / BQ, a.B * a.H);
-  return launch(flash_bwd_dq_kernel<DP>, grid, 128, smem, stream, a);
+  static SmemOptIn opt;
+  return launch(opt, flash_bwd_dq_kernel<DP>, grid, 128, smem, stream, a);
 }
 
 }  // namespace fa
@@ -137,7 +138,7 @@ extern "C" int flash_bwd_dq(int device, void* stream,
                             void* dq, long long qgsb, long long qgsh, long long qgsn,
                             int B, int H, int nq, int nk, int d, int kv_len, float scale,
                             int dtype) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = fa::use_device(device);
   if (err != cudaSuccess) return (int)err;
   fa::Args a = {};
   a.q = fa::make_view(q, qsb, qsh, qsn);

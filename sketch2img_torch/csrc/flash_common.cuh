@@ -1,7 +1,9 @@
 // Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): constants, the head-dim buckets, the
+// host-side launch helpers, and the warp-level mma.sync pieces of the dQ
+// kernel (the forward and dK/dV kernels use wgmma, hopper_common.cuh).
 //
-// Tensor-core products use the warp-level `mma.sync.m16n8k16` bf16 -> fp32
+// In the dQ kernel tensor-core products use the warp-level `mma.sync.m16n8k16` bf16 -> fp32
 // instruction. A warp owns 16 rows of the output tile; operands come from
 // shared memory as 32-bit (bf16x2) loads whose layouts are those of the PTX
 // ISA's m16n8k16 fragments:
@@ -21,6 +23,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace fa {
 
@@ -106,6 +110,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Columns col and col + 1 (those < d) of one bf16 output row: one 4-byte
+// store when d is even (the wrapper allocates the outputs with strides that
+// are multiples of d), two 2-byte stores otherwise.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int col, int d, bool in, float x,
+                                           float y) {
+  if (!in || col >= d) return;
+  if ((d & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
+  } else {
+    row[col] = __float2bfloat16_rn(x);
+    if (col + 1 < d) row[col + 1] = __float2bfloat16_rn(y);
+  }
+}
+
 // A fragment of rows [r0, r0+16), columns [k0, k0+16) of a row-major tile.
 __device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* s, int pitch, int r0,
                                        int k0, int g, int t) {
@@ -174,11 +192,36 @@ inline View make_view(const void* p, long long sb, long long sh, long long sn) {
   return v;
 }
 
+// Make `device` current unless it already is (the entry points run on
+// every attention call; cudaSetDevice is not free).
+inline cudaError_t use_device(int device) {
+  int cur = -1;
+  if (cudaGetDevice(&cur) == cudaSuccess && cur == device) return cudaSuccess;
+  return cudaSetDevice(device);
+}
+
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and
+// device: each launcher instantiation keeps one of these in a static.
+struct SmemOptIn {
+  std::atomic<unsigned long long> done{0};
+
+  template <typename Kernel>
+  cudaError_t ensure(Kernel kernel, size_t smem) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) done.fetch_or(bit);
+    return err;
+  }
+};
+
 template <typename Kernel>
-inline int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
-                  const Args& a) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+inline int launch(SmemOptIn& opt, Kernel kernel, dim3 grid, int threads, size_t smem,
+                  cudaStream_t stream, const Args& a) {
+  cudaError_t err = opt.ensure(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();

@@ -7,14 +7,23 @@ row-major and a d-major layout for the TPU's 128-wide matrix unit); here
 one kernel per direction covers every head dim up to 256:
 
   * ``csrc/flash_fwd.cu``      O = softmax(scale QK^T) V and the row LSE
-  * ``csrc/flash_bwd_dq.cu``   dQ, recomputing P from the LSE
+                               (TMA + wgmma, warp-specialised)
+  * ``csrc/flash_bwd_dq.cu``   dQ, recomputing P from the LSE (mma.sync)
   * ``csrc/flash_bwd_dkv.cu``  dK and dV, recomputing P from the LSE
+                               (TMA + wgmma, warp-specialised)
 
 All three mask keys at index >= ``kv_len`` exactly (-1e30 logits), take
-bf16 (or fp32, rounded to bf16 on the way into shared memory) tensors of
-shape (B, H, N, d) with any strides and a unit stride on d, and keep
+bf16 tensors of shape (B, H, N, d) with a unit stride on d, and keep
 softmax statistics and accumulators in fp32. Each source file states what
 bounds it and how it is laid out.
+
+TMA reads the forward's and dK/dV's operands straight from their strided
+views (the model's heads-views of (B, N, H*d) projections included) when
+the base is 16-byte aligned and every stride is a multiple of 16 bytes;
+``prepare_operand`` copies an operand that misses that into a buffer with
+a padded row pitch and counts the copy in ``TMA_COPIES`` (0 on both
+paths). fp32 inputs on the card are cast to bf16 by the wrapper (the
+kernels compute in bf16 either way) and the outputs cast back to fp32.
 
 Dispatch: a CPU tensor takes the plain version (the CPU tests); a CUDA
 tensor launches the kernel, and any failure to build or launch raises.
@@ -29,8 +38,10 @@ from typing import Optional, Tuple
 import torch
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+#: operands the wrapper had to copy before TMA would take them, by kernel
+TMA_COPIES = {"flash_fwd": 0, "flash_bwd_dkv": 0}
 SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "hopper_common.cuh", "wgmma_ops.cuh")
 MAX_HEAD_DIM = 256
 
 _NEG_INF = -1e30
@@ -39,8 +50,10 @@ _lib = None
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero ``LAUNCHES`` and ``TMA_COPIES``."""
+    for counts in (LAUNCHES, TMA_COPIES):
+        for name in counts:
+            counts[name] = 0
 
 
 def load_library(verbose: bool = False):
@@ -126,12 +139,48 @@ def flash_backward_plain(q, k, v, o, lse, do, scale: float,
 # ---------------------------------------------------------------------------
 
 
-def _unit_last(x: torch.Tensor) -> torch.Tensor:
-    return x if x.stride(-1) == 1 else x.contiguous()
+def tma_accepts(x: torch.Tensor) -> bool:
+    """Can TMA read this bf16 (B, H, N, d) tensor in place: unit stride on
+    d, 16-byte aligned base, and every stride of a dim longer than 1 a
+    nonzero multiple of 16 bytes (8 elements)."""
+    if x.dtype != torch.bfloat16 or x.dim() != 4:
+        return False
+    (b, h, n, d), (sb, sh, sn, sd) = x.shape, x.stride()
+    return ((sd == 1 or d == 1) and x.data_ptr() % 16 == 0
+            and (b == 1 or (sb > 0 and sb % 8 == 0))
+            and (h == 1 or (sh > 0 and sh % 8 == 0))
+            and (n == 1 or (sn > 0 and sn % 8 == 0)))
+
+
+def prepare_operand(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """-> (bf16 tensor TMA can read, whether it had to be copied). fp32 is
+    cast to bf16 first (an explicit rounding the kernels would do anyway);
+    a tensor TMA refuses is copied into a (B, H, N, ceil8(d)) buffer and
+    viewed back to d columns, so its row pitch is a multiple of 16 bytes."""
+    if x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
+    if tma_accepts(x):
+        return x, False
+    b, h, n, d = x.shape
+    pitch = -(-d // 8) * 8
+    y = torch.empty(b, h, n, pitch, dtype=torch.bfloat16, device=x.device)[..., :d]
+    return y.copy_(x), True
+
+
+def _prepare(kernel: str, *xs: torch.Tensor):
+    """``prepare_operand`` on each of ``xs``, counting copies under ``kernel``
+    (the common case, a tensor TMA takes as it is, costs one check)."""
+    out = []
+    for x in xs:
+        if not tma_accepts(x):
+            x, copied = prepare_operand(x)
+            TMA_COPIES[kernel] += int(copied)
+        out.append(x)
+    return out
 
 
 def _view(x: torch.Tensor):
-    return [x.data_ptr(), x.stride(0), x.stride(1), x.stride(2)]
+    return [x.data_ptr(), *x.stride()[:3]]
 
 
 def _heads_merged(b: int, h: int, n: int, d: int, like: torch.Tensor) -> torch.Tensor:
@@ -140,7 +189,7 @@ def _heads_merged(b: int, h: int, n: int, d: int, like: torch.Tensor) -> torch.T
     return torch.empty(b, n, h, d, dtype=like.dtype, device=like.device).permute(0, 2, 1, 3)
 
 
-def _check_cuda(*xs: torch.Tensor) -> None:
+def _check_cuda(scale: float, *xs: torch.Tensor) -> None:
     x0 = xs[0]
     if x0.device.type != "cuda":
         raise ValueError(f"flash kernels take CPU or CUDA tensors, got {x0.device}")
@@ -151,6 +200,8 @@ def _check_cuda(*xs: torch.Tensor) -> None:
             raise ValueError("q, k, v (and o, dO) must be 4-d tensors of one dtype on one device")
     if x0.shape[3] > MAX_HEAD_DIM:
         raise ValueError(f"head dim {x0.shape[3]} > {MAX_HEAD_DIM}")
+    if not scale > 0:
+        raise ValueError(f"the flash kernels take a positive scale, got {scale}")
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -171,8 +222,9 @@ def flash_forward(q, k, v, scale: float, kv_len: Optional[int] = None
     """(B, H, nq, d) x (B, H, nk, d) -> (O, LSE). Keys >= kv_len masked."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, scale, kv_len)
-    q, k, v = (_unit_last(x) for x in (q, k, v))
-    _check_cuda(q, k, v)
+    _check_cuda(scale, q, k, v)
+    dtype = q.dtype
+    q, k, v = _prepare("flash_fwd", q, k, v)
     b, h, nq, d = q.shape
     nk = k.shape[2]
     o = _heads_merged(b, h, nq, d, q)
@@ -181,8 +233,8 @@ def flash_forward(q, k, v, scale: float, kv_len: Optional[int] = None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch("flash_fwd", lib.flash_fwd, q.device.index, stream,
             *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(),
-            b, h, nq, nk, d, _kv_len(nk, kv_len), float(scale), _DTYPE_CODES[q.dtype])
-    return o, lse
+            b, h, nq, nk, d, _kv_len(nk, kv_len), float(scale), _DTYPE_CODES[torch.bfloat16])
+    return (o if dtype == torch.bfloat16 else o.to(dtype)), lse
 
 
 def flash_backward(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = None):
@@ -190,8 +242,9 @@ def flash_backward(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = No
     torch, as the JAX package computes it outside its kernels."""
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, o, lse, do, scale, kv_len)
-    q, k, v, do = (_unit_last(x) for x in (q, k, v, do))
-    _check_cuda(q, k, v, do)
+    _check_cuda(scale, q, k, v, do)
+    dtype = q.dtype
+    q, k, v, do = _prepare("flash_bwd_dkv", q, k, v, do)
     b, h, nq, d = q.shape
     nk = k.shape[2]
     kvl = _kv_len(nk, kv_len)
@@ -204,9 +257,11 @@ def flash_backward(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = No
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (q.device.index, stream, *_view(q), *_view(k), *_view(v), *_view(do),
               lse.data_ptr(), delta.data_ptr())
-    tail = (b, h, nq, nk, d, kvl, float(scale), _DTYPE_CODES[q.dtype])
+    tail = (b, h, nq, nk, d, kvl, float(scale), _DTYPE_CODES[torch.bfloat16])
     _launch("flash_bwd_dq", lib.flash_bwd_dq, *common, *_view(dq), *tail)
     _launch("flash_bwd_dkv", lib.flash_bwd_dkv, *common, *_view(dk), *_view(dv), *tail)
+    if dtype != torch.bfloat16:
+        dq, dk, dv = dq.to(dtype), dk.to(dtype), dv.to(dtype)
     return dq, dk, dv
 
 

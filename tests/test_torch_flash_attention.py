@@ -156,27 +156,142 @@ def test_flash_sites_take_the_flash_function(monkeypatch):
         tattn.multi_head_attention(x[:, :64], x[:, :64], x[:, :64], 2, backend="flash")
 
 
+# ---------------------------------------------------------------------------
+# the wrapper's argument preparation (pure, runs on CPU tensors)
+# ---------------------------------------------------------------------------
+
+
+def _heads_view(b, h, n, d, dtype=torch.bfloat16, seed=0):
+    """q/k/v as the model passes them: a (B, H, N, d) view of a (B, N, H*d)
+    projection, strides (N*H*d, d, H*d, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(b, n, h * d, generator=g).to(dtype).view(b, n, h, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("case,accepts", [
+    ("contiguous-d40", True),        # row pitch 80 B
+    ("heads-view-d40", True),        # the UNet's q/k/v: strides (N*H*d, d, H*d, 1)
+    ("heads-view-d64", True),        # the ViT's
+    ("contiguous-d36", False),       # 72-byte rows
+    ("heads-view-d36", False),       # head offset 72 B
+    ("sliced-d", False),             # unit stride on d but a 2-byte base offset
+    ("d-strided", False),            # no unit stride on d
+    ("fp32", False),                 # TMA reads bf16 only
+    ("batch1-odd-stride", True),     # a size-1 dim's stride is never used
+])
+def test_tma_accepts(case, accepts):
+    x = {
+        "contiguous-d40": lambda: torch.zeros(2, 8, 64, 40, dtype=torch.bfloat16),
+        "heads-view-d40": lambda: _heads_view(2, 8, 64, 40),
+        "heads-view-d64": lambda: _heads_view(1, 16, 257, 64),
+        "contiguous-d36": lambda: torch.zeros(1, 2, 64, 36, dtype=torch.bfloat16),
+        "heads-view-d36": lambda: _heads_view(1, 2, 64, 36),
+        "sliced-d": lambda: torch.zeros(1, 2, 64, 48, dtype=torch.bfloat16)[..., 1:41],
+        "d-strided": lambda: torch.zeros(1, 2, 40, 64, dtype=torch.bfloat16).transpose(2, 3),
+        "fp32": lambda: torch.zeros(1, 2, 64, 40),
+        "batch1-odd-stride": lambda: torch.zeros(2, 64, 40, dtype=torch.bfloat16).as_strided(
+            (1, 2, 64, 40), (3, 64 * 40, 40, 1)),
+    }[case]()
+    assert tfa.tma_accepts(x) is accepts
+
+
+@pytest.mark.parametrize("case", ["heads-view", "fp32-heads-view", "d36", "d-strided"])
+def test_prepare_operand_copies_only_what_tma_refuses(case):
+    """The cast and the copy keep the values; a copy gets a row pitch that
+    is a multiple of 8 elements and is what TMA takes; a tensor TMA takes
+    is passed through as it is."""
+    x = {"heads-view": lambda: _heads_view(2, 4, 64, 40),
+         "fp32-heads-view": lambda: _heads_view(2, 4, 64, 40, torch.float32),
+         "d36": lambda: _heads_view(1, 2, 64, 36),
+         "d-strided": lambda: _heads_view(1, 2, 64, 40).transpose(2, 3).contiguous()
+         .transpose(2, 3)}[case]()
+    y, copied = tfa.prepare_operand(x)
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert torch.equal(y.float(), x.to(torch.bfloat16).float())
+    assert tfa.tma_accepts(y)
+    assert copied is (case in ("d36", "d-strided"))
+    if case == "heads-view":
+        assert y is x
+    if copied:
+        assert y.stride(2) == -(-x.shape[3] // 8) * 8
+
+
+@pytest.mark.parametrize("nk,kv_len,want", [(384, None, 384), (384, 300, 300), (384, 999, 384),
+                                            (77, 77, 77)])
+def test_kv_len_is_clamped_to_the_keys(nk, kv_len, want):
+    assert tfa._kv_len(nk, kv_len) == want
+
+
+@pytest.mark.parametrize("kv_len", [0, -3])
+def test_kv_len_below_one_is_refused(kv_len):
+    with pytest.raises(ValueError):
+        tfa._kv_len(384, kv_len)
+
+
+def test_committed_wgmma_header_is_generated():
+    import os
+
+    from sketch2img_torch.utils import gen_wgmma
+    from sketch2img_torch.utils.cuda_build import CSRC_DIR
+
+    with open(os.path.join(CSRC_DIR, gen_wgmma.HEADER)) as f:
+        assert f.read() == gen_wgmma.render()
+
+
+# Card-only: (B, H, nq, nk, d, kv_len, layout). One shape of every head-dim
+# bucket of FA_DISPATCH_DP (d = 24 -> 32, 40 -> 48, 64, 72 -> 80, 96, 112 ->
+# 128, 160, 176 -> 192, 256), a main-path shape, a ragged nq/nk, the
+# injection's kv_len concat, fewer keys than a key tile, a head dim that is
+# not a multiple of 8 (copied for TMA), q/k/v as heads-views of (B, N, H*d)
+# projections (not copied), and fp32 inputs.
+CARD_CASES = (
+    [(1, 2, 256, 256, d, None, "bhnd") for d in (24, 40, 64, 72, 96, 112, 160, 176, 256)]
+    + [(1, 8, 1024, 1024, 80, None, "bhnd"), (1, 2, 300, 333, 40, 301, "bhnd"),
+       (2, 2, 256, 640, 40, 513, "heads"), (1, 2, 128, 77, 40, None, "bhnd"),
+       (1, 2, 200, 200, 36, None, "bhnd"), (2, 8, 256, 256, 40, None, "heads"),
+       (1, 4, 256, 256, 160, None, "heads"), (1, 2, 256, 256, 40, None, "fp32")])
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_version_on_card():
-    """Forward, dQ and dK/dV kernels against the plain version in bf16 at a
-    main-path shape and a ragged kv_len case. O, dQ, dK and dV: tolerance 2%
-    of each tensor's own largest reference value (the plain version rounds P
-    and dS to bf16 as the kernels do; what is left is bf16 output rounding
-    and the summation order). LSE: 1e-3 absolute (fp32 from exact bf16
-    products). The backward reference takes the plain forward's O and LSE."""
+    """Forward, dQ and dK/dV kernels against the plain version at
+    ``CARD_CASES``. O, dQ, dK and dV: tolerance 2% of each tensor's own
+    largest reference value (the plain version rounds P and dS to bf16 as
+    the kernels do; what is left is bf16 output rounding and the summation
+    order). LSE: 1e-3 absolute (fp32 from exact bf16 products). The backward
+    reference takes the plain forward's O and LSE. Operands are copied for
+    TMA only where the head dim is not a multiple of 8."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: run `pytest -m cuda "
                     "tests/test_torch_flash_attention.py` on the GPU machine")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, h, nq, nk, d, kv_len in ((1, 8, 1024, 1024, 80, None), (1, 2, 300, 333, 40, 301)):
-        q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device="cuda").bfloat16()
-                       for n in (nq, nk, nk, nq))
+    for b, h, nq, nk, d, kv_len, layout in CARD_CASES:
+        def make(n):
+            if layout == "heads":
+                x = torch.randn(b, n, h * d, generator=gen, device="cuda").bfloat16()
+                return x.view(b, n, h, d).transpose(1, 2)
+            x = torch.randn(b, h, n, d, generator=gen, device="cuda")
+            return x if layout == "fp32" else x.bfloat16()
+
+        q, k, v, do = make(nq), make(nk), make(nk), make(nq)
+        tfa.reset_launch_counts()
         o, lse = tfa.flash_forward(q, k, v, d ** -0.5, kv_len)
-        o_ref, lse_ref = tfa.flash_forward_plain(q, k, v, d ** -0.5, kv_len)
         got = tfa.flash_backward(q, k, v, o, lse, do, d ** -0.5, kv_len)
+        # fp32 inputs are rounded to bf16 by the wrapper: the reference sees
+        # the same rounded values, in fp32
+        q, k, v, do = (x.bfloat16().to(x.dtype) for x in (q, k, v, do))
+        o_ref, lse_ref = tfa.flash_forward_plain(q, k, v, d ** -0.5, kv_len)
         want = tfa.flash_backward_plain(q, k, v, o_ref, lse_ref, do, d ** -0.5, kv_len)
         torch.cuda.synchronize()
-        assert (lse - lse_ref).abs().max().item() <= 1e-3
-        for a, r in [(o, o_ref)] + list(zip(got, want)):
+        case = (b, h, nq, nk, d, kv_len, layout)
+        assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}, case
+        copied = d % 8 != 0  # every operand: q, k, v forward; q, k, v, dO backward
+        assert tfa.TMA_COPIES == {"flash_fwd": 3 * copied, "flash_bwd_dkv": 4 * copied}, case
+        assert (lse - lse_ref).abs().max().item() <= 1e-3, case
+        for name, a, r in zip(("O", "dQ", "dK", "dV"), (o,) + tuple(got), (o_ref,) + tuple(want)):
+            assert a.dtype == q.dtype and a.shape == r.shape, (case, name)
             err = (a.float() - r.float()).abs().max().item()
-            assert err <= 2e-2 * r.float().abs().max().item(), err
+            assert err <= 2e-2 * r.float().abs().max().item(), (case, name, err)
+        if kv_len is not None:
+            assert got[1][:, :, kv_len:].abs().max().item() == 0.0, case
+            assert got[2][:, :, kv_len:].abs().max().item() == 0.0, case
