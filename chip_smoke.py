@@ -13,20 +13,27 @@ Phases, each printing its own lines:
   2. kernels  hold each kernel against its plain PyTorch version in bf16 at
               every shape the two paths give it and time the kernel, the
               plain version and one PyTorch call as a yardstick (the port
-              never calls it): flash forward, backward dQ and dK/dV at the
-              sketch-guided shapes (q/k/v as the model passes them: heads
-              views of (B, N, H*d) projections) plus a ragged and a kv_len
-              case, one shape of every head-dim bucket, a head dim TMA
-              cannot take in place, the flash forward at the injection
+              never calls it): flash forward, backward dQ (with the delta =
+              rowsum(dO O) it writes for dK/dV, against the plain delta, and
+              each of its two block shapes at the guided shapes) and dK/dV
+              at the sketch-guided shapes (q/k/v as the model passes them:
+              heads views of (B, N, H*d) projections) plus a ragged and a
+              kv_len case, one shape of every head-dim bucket, a head dim
+              TMA cannot take in place, the flash forward at the injection
               path's shapes (batch 16 self- and concat attention, the ViT's
-              257 tokens), and the GroupNorm kernel at every (B, C, H, W,
-              eps, silu) recorded from one pass of each model on both paths,
-              plus real activations. Times: "ms" back-to-back calls between
-              CUDA events (host work included), "device_ms" the replay of
-              CUDA graphs of the same calls (device time alone; for SDPA's
-              backward, its kernels' durations from torch.profiler); the flash
-              forward's host time a call at (1, 8, 256, 160) is logged.
-              ("--phases build,flash" runs the flash part alone);
+              257 tokens), and both variants of the GroupNorm kernel (one
+              pass on clusters where a group fits 16 blocks' shared memory,
+              and the split two-pass one) at every (B, C, H, W, eps, silu)
+              recorded from one pass of each model on both paths, on real
+              activations and in fp32 across the variants' boundary. Times:
+              "ms" back-to-back calls between CUDA events (host work
+              included), "device_ms" the replay of CUDA graphs of the same
+              calls (device time alone; for SDPA's backward, its kernels'
+              durations from torch.profiler); the host time a call of the
+              flash forward and backward at (1, 8, 256, 160) and of the
+              GroupNorm wrapper at (1, 1280, 8, 8) is logged, and whether the
+              card schedules 16-block clusters. ("--phases build,flash" runs
+              the flash part alone);
   3. e2e      full-width SD1.5 (seeded random weights): the kernels against
               the plain attention path, then against the plain GroupNorm
               path, inside one guided UNet pass; then a 512x512, 50-step
@@ -87,13 +94,21 @@ REPLACES = {
     "flash_bwd_dkv": "sketch2img_tpu/ops/flash_attention.py:640 (_bwd_dkv_kernel; _bwd_dkv_kernel_t :462)",
     "groupnorm_silu": "sketch2img_tpu/ops/groupnorm.py:54 (_kernel; _fused_forward :97, "
                       "pallas_call :112)",
+    "groupnorm_silu_split": "sketch2img_tpu/ops/groupnorm.py:54 (_kernel; _fused_forward :97, "
+                            "pallas_call :112)",
 }
 SOURCES = {
     "flash_fwd": "sketch2img_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "sketch2img_torch/csrc/flash_bwd_dq.cu",
     "flash_bwd_dkv": "sketch2img_torch/csrc/flash_bwd_dkv.cu",
     "groupnorm_silu": "sketch2img_torch/csrc/groupnorm_silu.cu",
+    "groupnorm_silu_split": "sketch2img_torch/csrc/groupnorm_silu.cu",
 }
+# the GroupNorm kernel's two variants (one pass on thread-block clusters; two
+# passes for groups larger than 16 blocks' shared memory)
+GN_KERNELS = ("groupnorm_silu", "groupnorm_silu_split")
+# the split variant's own path shape: the VAE decoder's (B, 256, 512^2) norm
+GN_SPLIT_SHAPE = (1, 256, 512, 512)
 # bf16 outputs carry 2^-9 relative rounding and the kernel accumulates in a
 # different order than the plain version (both round P and dS to bf16 before
 # their products): each of O, dQ, dK, dV may be off by this share of its own
@@ -101,10 +116,16 @@ SOURCES = {
 # held to an absolute limit.
 TOL_REL = 2e-2
 TOL_LSE_ABS = 1e-3
+# delta = rowsum(dO * O) in fp32 from exact products of bf16 values: only
+# the summation order differs from the plain version's
+TOL_DELTA_REL = 1e-4
 # GroupNorm: one bf16 rounding of the output (2^-9 relative) plus another
 # summation order of the statistics; max error within 1% of max|plain|, mean
 # error within 0.1% of it
 GN_TOL_MAX, GN_TOL_MEAN = 1e-2, 1e-3
+# fp32 GroupNorm: the plain version and the kernel differ in summation order
+# only (both take fp32 statistics and an fp32 output)
+GN_TOL_FP32 = 1e-4
 
 
 class PhaseError(RuntimeError):
@@ -204,20 +225,24 @@ def bound_ms(kind: str, b: int, h: int, nq: int, nk: int, kv_len: int, d: int) -
     if kind == "flash_fwd":
         flops = 4 * bh * nq * kv_len * d
         nbytes = bh * (2 * nq * d + 2 * kv_len * d) * e + bh * nq * 4
+    elif kind == "flash_bwd_dq":
+        # reads Q, dO, O, K, V and the LSE; writes dQ and delta
+        flops = 6 * bh * nq * kv_len * d
+        nbytes = bh * (3 * nq * d + 2 * kv_len * d + nq * d) * e + bh * nq * 8
     else:
-        flops = (6 if kind == "flash_bwd_dq" else 8) * bh * nq * kv_len * d
-        outs = nq * d if kind == "flash_bwd_dq" else 2 * nk * d
-        nbytes = bh * (2 * nq * d + 2 * kv_len * d + outs) * e + bh * nq * 8
+        # reads Q, dO, K, V, the LSE and delta; writes dK and dV
+        flops = 8 * bh * nq * kv_len * d
+        nbytes = bh * (2 * nq * d + 2 * kv_len * d + 2 * nk * d) * e + bh * nq * 8
     terms = {"tensor": flops / PEAK_BF16_FLOPS * 1e3, "bytes": nbytes / PEAK_HBM_BYTES * 1e3,
              "exp": bh * nq * kv_len / PEAK_EXP2 * 1e3}
     term = max(terms, key=terms.get)
     return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
-def gn_bound_ms(numel: int, channels: int) -> tuple:
-    """GroupNorm+SiLU moves x in and y out once (bf16) plus gamma and beta;
-    its ~10 fp32 operations an element are far below the byte time."""
-    return (2 * numel * 2 + 2 * channels * 2) / PEAK_HBM_BYTES * 1e3, "bytes"
+def gn_bound_ms(numel: int, channels: int, elem_bytes: int = 2) -> tuple:
+    """GroupNorm+SiLU moves x in and y out once plus gamma and beta; its ~10
+    fp32 operations an element are far below the byte time."""
+    return (2 * numel + 2 * channels) * elem_bytes / PEAK_HBM_BYTES * 1e3, "bytes"
 
 
 def new_entry() -> dict:
@@ -299,7 +324,6 @@ def check_flash(fa, torch) -> dict:
             # the kernel's LSE cannot cancel out of both sides
             rq, rk, rv = fa.flash_backward_plain(q, k, v, o_ref, lse_ref, do, scale, kv_len)
             torch.cuda.synchronize()
-            results["flash_bwd_dq"] = [("dQ", dq, rq)]
             results["flash_bwd_dkv"] = [("dK", dk, rk), ("dV", dv, rv)]
             qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, ks, vs))
             out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
@@ -309,14 +333,35 @@ def check_flash(fa, torch) -> dict:
             # graph would have to hold autograd's work too)
             lib_bwd_dev = profiled_device_ms(lambda: torch.autograd.grad(
                 out, (qg, kg, vg), do, retain_graph=True))
-            t_bwd = time_ms(lambda: fa.flash_backward(q, k, v, o, lse, do, scale, kv_len))
+            bwd = lambda: fa.flash_backward(q, k, v, o, lse, do, scale, kv_len)  # noqa: E731
+            t_bwd = time_ms(bwd)
+            if (b, h, nq, d) == (1, HEADS, 256, 160) and tag == "main":
+                log(f"  flash_backward host time a call at (1, 8, 256, 160): {host_us(bwd):.2f} us")
             t_plain = time_ms(lambda: fa.flash_backward_plain(q, k, v, o, lse, do, scale,
                                                               kv_len), reps=5)
             # one flash_backward call launches both kernels; split its time by
             # timing each kernel alone through the C entry points
-            run_dq, run_dkv = split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl)
+            run_dq, run_dkv, delta, _ = split_backward(fa, torch, q, k, v, o, lse, do, scale,
+                                                       kvl)
+            torch.cuda.synchronize()
+            results["flash_bwd_dq"] = [("dQ", dq, rq),
+                                       ("delta", delta, (do.float() * o.float()).sum(-1))]
             t_dq, t_dkv = time_ms(run_dq), time_ms(run_dkv)
             g_dq, g_dkv = graph_ms(run_dq), graph_ms(run_dkv)
+            if tag == "main" and hasattr(fa, "backward_operands"):
+                # both block shapes of the dQ kernel (buckets up to 160 have two)
+                for variant, label in ((1, "128-query blocks"), (2, "64-query blocks")):
+                    run_v, _, _, dq_v = split_backward(fa, torch, q, k, v, o, lse, do, scale,
+                                                       kvl, variant)
+                    torch.cuda.synchronize()
+                    v_err = float((dq_v.float() - rq.float()).abs().max())
+                    v_tol = TOL_REL * float(rq.float().abs().max())
+                    log(f"  dq variant {variant} ({label}) B={b} nq={nq} d={d}:"
+                        f" device_ms={graph_ms(run_v):.4f} ms={time_ms(run_v):.4f}"
+                        f" err={v_err:.3e} tol={v_tol:.3e}")
+                    if not v_err <= v_tol:
+                        failures.append(f"flash_bwd_dq variant {variant} B={b} nq={nq} d={d}:"
+                                        f" err={v_err:.3e} > {v_tol:.3e}")
             times["flash_bwd_dq"] = (t_dq, g_dq, t_plain, lib_bwd, lib_bwd_dev)
             times["flash_bwd_dkv"] = (t_dkv, g_dkv, t_plain, lib_bwd, lib_bwd_dev)
             log(f"  backward pair {t_bwd:.4f} ms = dq {t_dq:.4f} + dkv {t_dkv:.4f} (alone);"
@@ -328,7 +373,8 @@ def check_flash(fa, torch) -> dict:
             for label, a, r in outs:
                 t_err = float((a.float() - r.float()).abs().max())
                 t_ref = float(r.float().abs().max())
-                t_tol = TOL_LSE_ABS if label == "LSE" else TOL_REL * t_ref
+                t_tol = (TOL_LSE_ABS if label == "LSE" else
+                         TOL_DELTA_REL * t_ref if label == "delta" else TOL_REL * t_ref)
                 t_ok = bool(torch.isfinite(a).all()) and t_err <= t_tol
                 checks.append((label, t_err, t_ref, t_tol, t_ok))
             err = max(c[1] for c in checks)
@@ -366,32 +412,50 @@ def check_flash(fa, torch) -> dict:
     return per_kernel
 
 
-def split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl):
+def split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl, variant: int = 0):
     """The dQ and dK/dV launches of one flash_backward, each callable alone
-    through the C entry points (on the stream current at the call)."""
+    through the C entry points (on the stream current at the call), and the
+    delta they share. The dQ kernel writes delta (run once here, so that
+    the dK/dV launch has it); ``variant`` picks its block shape (0 as the
+    wrapper does, 1: 128-query blocks, 2: 64-query blocks splitting the key
+    tiles). Against a package whose dQ kernel takes delta (a parent tree),
+    delta is computed here as that wrapper did."""
     lib = fa.load_library()
-    prepare = getattr(fa, "prepare_operand", lambda x: (x, False))
-    q, k, v, do = (prepare(x)[0] for x in (q, k, v, do))
+    in_kernel = hasattr(fa, "backward_operands")
+    if in_kernel:
+        q, k, v, do, o = fa.backward_operands(q, k, v, o, do)
+    else:
+        q, k, v, do = (fa.prepare_operand(x)[0] for x in (q, k, v, do))
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    delta = (do.float() * o.float()).sum(-1).contiguous()
+    if in_kernel:
+        delta = torch.empty(b, h, nq, dtype=torch.float32, device=q.device)
+    else:
+        delta = (do.float() * o.float()).sum(-1).contiguous()
     lse = lse.float().contiguous()
     dq = fa._heads_merged(b, h, nq, d, q)
     dk, dv = fa._heads_merged(b, h, nk, d, q), fa._heads_merged(b, h, nk, d, q)
     view = fa._view
     tail = (b, h, nq, nk, d, kvl, float(scale), 0)
 
-    def common():
+    def qkvd():
         return (q.device.index, torch.cuda.current_stream().cuda_stream, *view(q), *view(k),
-                *view(v), *view(do), lse.data_ptr(), delta.data_ptr())
+                *view(v), *view(do))
 
     def run_dq():
-        fa._launch("flash_bwd_dq", lib.flash_bwd_dq, *common(), *view(dq), *tail)
+        if in_kernel:
+            fa._launch("flash_bwd_dq", lib.flash_bwd_dq, *qkvd(), *view(o), lse.data_ptr(),
+                       delta.data_ptr(), *view(dq), *tail, variant)
+        else:
+            fa._launch("flash_bwd_dq", lib.flash_bwd_dq, *qkvd(), lse.data_ptr(),
+                       delta.data_ptr(), *view(dq), *tail)
 
     def run_dkv():
-        fa._launch("flash_bwd_dkv", lib.flash_bwd_dkv, *common(), *view(dk), *view(dv), *tail)
+        fa._launch("flash_bwd_dkv", lib.flash_bwd_dkv, *qkvd(), lse.data_ptr(), delta.data_ptr(),
+                   *view(dk), *view(dv), *tail)
 
-    return run_dq, run_dkv
+    run_dq()
+    return run_dq, run_dkv, delta, dq
 
 
 def record_gn_calls(stack, gn, torch) -> tuple:
@@ -452,78 +516,155 @@ def record_gn_calls(stack, gn, torch) -> tuple:
     return per_pass, inputs
 
 
+def gn_kernel_of(gn, shape, dtype_bytes: int = 2) -> str:
+    """The variant the wrapper's plan takes at a (B, C, H, W) shape (a
+    package without plans has the one kernel)."""
+    if not hasattr(gn, "launch_plan"):
+        return "groupnorm_silu"
+    b, c, h, w = shape
+    return gn.launch_plan(b, c, h * w, 32, dtype_bytes).kernel
+
+
+def gn_fits_one_pass(gn, x) -> bool:
+    """Can the one-pass variant take x's groups (forced where the plan
+    prefers the split one)?"""
+    b, c, h, w = x.shape
+    try:
+        gn.launch_plan(b, c, h * w, 32, x.element_size(), "groupnorm_silu")
+    except ValueError:
+        return False
+    return True
+
+
+def gn_launches(gn, passes) -> dict:
+    """Expected GroupNorm launches by variant over ``passes``, a list of
+    (recorded calls of one model pass, times run)."""
+    out = {}
+    for calls, times in passes:
+        for shape, _, _ in calls:
+            name = gn_kernel_of(gn, shape)
+            out[name] = out.get(name, 0) + times
+    return {name: out.get(name, 0) for name in gn.LAUNCHES}
+
+
 def check_groupnorm(stack, gn, torch) -> dict:
-    """The kernel against its plain version at every distinct (B, C, H, W,
-    eps, silu) the passes gave it (random inputs, mean 0.5, and a random
-    affine) and on the real activations; times of the kernel, the plain
-    version and the yardstick F.silu(F.group_norm(x)) (two PyTorch calls)."""
+    """Each variant of the kernel against the plain version at every
+    distinct (B, C, H, W, eps, silu) the passes gave it (random inputs, mean
+    0.5, and a random affine; the one-pass variant forced where the plan
+    prefers the split one and a group fits 16 blocks), on the real
+    activations, and in fp32 on both sides of the variants' boundary; times of each variant, the plain version and the
+    yardstick F.silu(F.group_norm(x)) (two PyTorch calls); the wrapper's
+    host time a call."""
     import torch.nn.functional as F
 
-    per_pass, inputs = record_gn_calls(stack, gn, torch)
+    per_pass, inputs = stack.gn_calls(gn, torch)
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = {}
     for calls in per_pass.values():
         for shape, eps, silu in calls:
             cases.setdefault((shape, eps, silu), None)
-    work = [("shape", shape, eps, silu, None) for shape, eps, silu in cases]
-    work += [("real_unet_norm1", tuple(inputs["unet_norm1"].shape), 1e-5, True,
+    bf16, fp32 = torch.bfloat16, torch.float32
+    work = [("shape", shape, eps, silu, bf16, None) for shape, eps, silu in cases]
+    work += [("real_unet_norm1", tuple(inputs["unet_norm1"].shape), 1e-5, True, bf16,
               inputs["unet_norm1"]),
-             ("real_vae_norm_out", tuple(inputs["vae_norm_out"].shape), 1e-6, True,
-              inputs["vae_norm_out"])]
-    entry, failures, timed = new_entry(), [], {}
-    for tag, shape, eps, silu, x in work:
+             ("real_vae_norm_out", tuple(inputs["vae_norm_out"].shape), 1e-6, True, bf16,
+              inputs["vae_norm_out"]),
+             # fp32: 2 MB groups (split, or one pass forced on 16 blocks of
+             # 128 KB), 4 MB groups (split only), 160 KB groups (one pass)
+             ("fp32", (1, 256, 256, 256), 1e-6, True, fp32, None),
+             ("fp32", (1, 128, 512, 512), 1e-6, True, fp32, None),
+             ("fp32", (2, 320, 64, 64), 1e-5, False, fp32, None)]
+    variants = GN_KERNELS if hasattr(gn, "launch_plan") else GN_KERNELS[:1]
+    entries = {name: new_entry() for name in variants}
+    failures, timed, split_sums = [], {}, {}
+    for tag, shape, eps, silu, dt, x in work:
         c = shape[1]
         if x is None:
-            x = (torch.randn(*shape, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
-        w = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
-        b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
-        y = gn.group_norm_silu_kernel(x, w, b, 32, eps, silu)
+            x = (torch.randn(*shape, generator=gen, device="cuda") + 0.5).to(dt)
+        w = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dt)
+        b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dt)
         p = gn.group_norm_silu_plain(x, w, b, 32, eps, silu)
-        torch.cuda.synchronize()
-        diff = (y.float() - p.float()).abs()
         ref = float(p.float().abs().max())
-        err, mean_err = float(diff.max()), float(diff.mean())
-        ok = (bool(torch.isfinite(y).all()) and err <= GN_TOL_MAX * ref
-              and mean_err <= GN_TOL_MEAN * ref)
+        big = x.numel() > 2 ** 26
 
         def library():
             out = F.group_norm(x, 32, w, b, eps)
             return F.silu(out) if silu else out
 
-        big = x.numel() > 2 ** 26
-        kernel = lambda: gn.group_norm_silu_kernel(x, w, b, 32, eps, silu)  # noqa: E731
-        kms, dms = time_ms(kernel), graph_ms(kernel, reps=3 if big else 10)
         pms = time_ms(lambda: gn.group_norm_silu_plain(x, w, b, 32, eps, silu),
                       reps=3 if big else 5)
         lms, ldms = time_ms(library), graph_ms(library, reps=3 if big else 10)
-        bms, bby = gn_bound_ms(x.numel(), c)
-        log(f"kernel=groupnorm_silu case={tag} shape={shape} eps={eps:g} silu={silu}"
-            f" err={err:.3e} mean_err={mean_err:.3e} max|plain|={ref:.3e}"
-            f" tol={GN_TOL_MAX * ref:.3e}/{GN_TOL_MEAN * ref:.3e} ok={ok}"
-            f" ms={kms:.4f} device_ms={dms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f}"
-            f" library_device_ms={ldms:.4f} bound_ms={bms:.4f} ({bby})")
-        if not ok:
-            failures.append(f"groupnorm_silu {tag} {shape} eps={eps} silu={silu}: err={err:.3e}"
-                            f" mean={mean_err:.3e} max|plain|={ref:.3e}")
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        entry["bound_by"] = entry["bound_term"] = bby
-        timed[(shape, eps, silu)] = (kms, dms, pms, lms, ldms, bms)
-        entry["shapes"].append({"case": tag, "shape": list(shape), "eps": eps, "silu": silu,
-                                "ms": kms, "device_ms": dms, "plain_ms": pms,
-                                "library_ms": lms, "library_device_ms": ldms,
-                                "bound_ms": bms})
-        del x, y, p, diff
+        bms, bby = gn_bound_ms(x.numel(), c, x.element_size())
+        planned = gn_kernel_of(gn, shape, x.element_size())
+        for name in variants:
+            if name == "groupnorm_silu" and planned != name and not gn_fits_one_pass(gn, x):
+                continue  # the group does not fit 16 blocks' shared memory
+            kw = {"kernel": name} if len(variants) > 1 else {}
+            kernel = lambda: gn.group_norm_silu_kernel(x, w, b, 32, eps, silu, **kw)  # noqa: E731
+            y = kernel()
+            torch.cuda.synchronize()
+            diff = (y.float() - p.float()).abs()
+            err, mean_err = float(diff.max()), float(diff.mean())
+            tol_max, tol_mean = ((GN_TOL_MAX, GN_TOL_MEAN) if dt == bf16
+                                 else (GN_TOL_FP32, GN_TOL_FP32))
+            ok = (bool(torch.isfinite(y).all()) and err <= tol_max * ref
+                  and mean_err <= tol_mean * ref)
+            kms, dms = time_ms(kernel), graph_ms(kernel, reps=3 if big else 10)
+            log(f"kernel={name} case={tag} shape={shape} {str(dt)[6:]} eps={eps:g} silu={silu}"
+                f" planned={planned == name} err={err:.3e} mean_err={mean_err:.3e}"
+                f" max|plain|={ref:.3e} tol={tol_max * ref:.3e}/{tol_mean * ref:.3e} ok={ok}"
+                f" ms={kms:.4f} device_ms={dms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f}"
+                f" library_device_ms={ldms:.4f} bound_ms={bms:.4f} ({bby})")
+            if not ok:
+                failures.append(f"{name} {tag} {shape} {dt} eps={eps} silu={silu}: err={err:.3e}"
+                                f" mean={mean_err:.3e} max|plain|={ref:.3e}")
+            entry = entries[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry["bound_by"] = entry["bound_term"] = bby
+            vals = (kms, dms, pms, lms, ldms, bms)
+            if tag == "shape" and name == planned:
+                timed[(shape, eps, silu)] = vals
+            if tag == "shape" and name == "groupnorm_silu_split":
+                split_sums[(shape, eps, silu)] = vals
+            if name == "groupnorm_silu_split" and shape == GN_SPLIT_SHAPE and tag == "shape":
+                entry.update(zip(("ms", "device_ms", "plain_ms", "library_ms",
+                                  "library_device_ms", "bound_ms"), vals))
+            entry["shapes"].append({"case": tag, "shape": list(shape), "dtype": str(dt)[6:],
+                                    "eps": eps, "silu": silu, "planned": planned == name,
+                                    "ms": kms, "device_ms": dms, "plain_ms": pms,
+                                    "library_ms": lms, "library_device_ms": ldms,
+                                    "bound_ms": bms})
+            del y, diff
+        del x, p
         torch.cuda.empty_cache()
     if failures:
         raise PhaseError("; ".join(failures))
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
     for name, calls in per_pass.items():
         tot = dict(zip(keys, (sum(timed[call][i] for call in calls) for i in range(6))))
-        log(f"  groupnorm_silu summed over one {name} pass ({len(calls)} calls): "
-            + " ".join(f"{k_}={v_:.4f}" for k_, v_ in tot.items()))
+        n_split = sum(gn_kernel_of(gn, call[0]) != "groupnorm_silu" for call in calls)
+        log(f"  groupnorm planned variants summed over one {name} pass ({len(calls)} calls,"
+            f" {n_split} split): " + " ".join(f"{k_}={v_:.4f}" for k_, v_ in tot.items()))
+        if all(call in split_sums for call in calls):
+            alt = sum(split_sums[call][1] for call in calls)
+            log(f"  the split variant over the same {name} pass: device_ms={alt:.4f}")
         if name == "unet_b1":  # the flash kernels' convention: one batch-1 UNet pass
-            entry.update(tot)
-    return entry
+            entries["groupnorm_silu"].update(tot)
+    # the wrapper's host time a call at a batch-1 UNet shape, where the
+    # device takes a few microseconds
+    x = torch.randn(1, 1280, 8, 8, device="cuda").to(bf16)
+    w, b = torch.ones(1280, device="cuda", dtype=bf16), torch.zeros(1280, device="cuda", dtype=bf16)
+    log(f"  group_norm_silu_kernel host time a call at (1, 1280, 8, 8): "
+        f"{host_us(lambda: gn.group_norm_silu_kernel(x, w, b, 32, 1e-5, True)):.2f} us")
+    if hasattr(gn, "load_library") and hasattr(gn.load_library(), "groupnorm_max_active_clusters"):
+        lib = gn.load_library()
+        for cluster, kb in ((16, 128), (16, 64), (8, 64)):
+            n = lib.groupnorm_max_active_clusters(torch.cuda.current_device(), cluster, kb * 1024)
+            log(f"  clusters of {cluster} one-pass blocks with {kb} KB the card holds at once: {n}")
+            if n < 1:
+                raise PhaseError(f"the card cannot schedule clusters of {cluster} blocks "
+                                 f"with {kb} KB of shared memory")
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -591,7 +732,7 @@ def main(argv=None) -> int:
             per_kernel = check_flash(fa, torch)
             log(f"  flash kernels checked, {time.time() - t0:.2f} s")
             if "kernels" in phases:
-                per_kernel["groupnorm_silu"] = check_groupnorm(stack, gn, torch)
+                per_kernel.update(check_groupnorm(stack, gn, torch))
             log(f"phase kernels: ok, {time.time() - t0:.2f} s")
         if "e2e" in phases:
             t0 = time.time()
@@ -682,7 +823,7 @@ class Stack:
 
     def __init__(self, torch):
         self.torch = torch
-        self._comps = self._inject = None
+        self._comps = self._inject = self._gn_calls = None
 
     @property
     def comps(self):
@@ -701,6 +842,13 @@ class Stack:
             log(f"  random_init (full SD1.5 width, bf16, LGP fp32 {c.lgp.layers[0].in_features}"
                 f" inputs): {time.perf_counter() - t0:.2f} s, params {n_params}")
         return self._comps
+
+    def gn_calls(self, gn, torch):
+        """``record_gn_calls``, once: the GroupNorm calls of one pass of each
+        model of the two paths, and two real inputs."""
+        if self._gn_calls is None:
+            self._gn_calls = record_gn_calls(self, gn, torch)
+        return self._gn_calls
 
     @property
     def inject(self):
@@ -824,9 +972,15 @@ def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
     n_guided = num_guided_steps(steps)
     n_plain = steps - n_guided
     forwards = 2 * n_guided + n_plain
+    per_pass, _ = stack.gn_calls(gn, torch)
     expected = {"flash_fwd": FWD_SITES * forwards,
                 "flash_bwd_dq": BWD_SITES * n_guided, "flash_bwd_dkv": BWD_SITES * n_guided,
-                "groupnorm_silu": GN_UNET * forwards + GN_VAE_ENC + GN_VAE_DEC}
+                **gn_launches(gn, [(per_pass["unet_b1"], 2 * n_guided),
+                                   (per_pass["unet_b2"], n_plain), (per_pass["vae_enc_b1"], 1),
+                                   (per_pass["vae_dec_b1"], 1)])}
+    gn_total = sum(launches[k] for k in gn.LAUNCHES)
+    log(f"  GroupNorm launches summed over variants {gn_total}"
+        f" (expected {GN_UNET * forwards + GN_VAE_ENC + GN_VAE_DEC})")
     step_s = [b - a for a, b in zip(marks[:-1], marks[1:])]
     guided_s = step_s[: n_guided - 1]
     plain_s = step_s[n_guided - 1:]
@@ -893,9 +1047,14 @@ def run_inject(stack, fa, gn, torch) -> dict:
         f" {end2 - start2:.3f} s ({(end2 - start2) / INJ_STEPS:.4f} s per step, encode and"
         f" decode included); injected UNet forward at B={b2}: {unet_ms:.2f} ms; peak memory"
         f" {peak:.2f} GiB; nsfw flags {flags.tolist()}; on {card_line()}")
+    per_pass, _ = stack.gn_calls(gn, torch)
     expected = {"flash_fwd": INJ_STEPS * INJ_FLASH_SITES + 2 * VIT_LAYERS,
                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                "groupnorm_silu": INJ_STEPS * GN_UNET + GN_VAE_DEC}
+                **gn_launches(gn, [(per_pass["unet_inj_b16"], INJ_STEPS),
+                                   (per_pass["vae_dec_b8"], 1)])}
+    gn_total = sum(launches[k] for k in gn.LAUNCHES)
+    log(f"  GroupNorm launches summed over variants {gn_total}"
+        f" (expected {INJ_STEPS * GN_UNET + GN_VAE_DEC})")
     finite = bool(np.isfinite(img).all())
     log(f"  images shape {img.shape} finite={finite} min={img.min():.4f} max={img.max():.4f}"
         f" mean={img.mean():.4f} std={img.std():.4f}")
@@ -959,7 +1118,7 @@ def profile_request(torch, label: str, request) -> None:
         f"{sum(r[1] for r in rows)} launches, device busy {busy / 1e3:.2f} ms "
         f"({100 * busy / wall_us:.1f}% of wall, idle {100 * (1 - busy / wall_us):.1f}%), "
         f"flash kernels {share(lambda k: 'flash_' in k)}, GroupNorm kernel "
-        f"{share(lambda k: 'gn_stats' in k or 'gn_apply' in k)}, PyTorch GroupNorm "
+        f"{share(lambda k: 'gn::' in k)}, PyTorch GroupNorm "
         f"{share(lambda k: 'RowwiseMoments' in k or 'group_norm' in k.lower())}, "
         f"copies and casts {share(lambda k: 'copy' in k.lower())}")
     for dev, count, key in rows[:25]:

@@ -250,7 +250,7 @@ int launch_dkv(DkvParams& prm, const DkvCall& c, cudaStream_t stream) {
   if (!err) err = hp::encode_operand(&prm.v, c.v, c.B, prm.H, prm.nk, prm.d, c.vs[0], c.vs[1],
                                      c.vs[2], T::BKV, T::SW);
   if (err) return err;
-  static SmemOptIn opt;
+  static hp::SmemOptIn opt;
   cudaError_t e = opt.ensure(flash_bwd_dkv_kernel<DP>, T::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((prm.nk + T::BKV - 1) / T::BKV, c.B * prm.H);
@@ -273,7 +273,7 @@ extern "C" int flash_bwd_dkv(int device, void* stream,
                              int B, int H, int nq, int nk, int d, int kv_len, float scale,
                              int dtype) {
   if (dtype != fa::kBF16 || !(scale > 0.f) || kv_len < 1 || kv_len > nk) return (int)cudaErrorInvalidValue;
-  cudaError_t err = fa::use_device(device);
+  cudaError_t err = hp::use_device(device);
   if (err != cudaSuccess) return (int)err;
   fa::DkvParams prm = {};
   prm.lse = lse;

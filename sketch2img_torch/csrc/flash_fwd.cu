@@ -248,7 +248,7 @@ int launch_fwd(FwdParams& prm, const FwdCall& c, cudaStream_t stream) {
   if (!err) err = hp::encode_operand(&prm.v, c.v, c.B, prm.H, c.nk, prm.d, c.vs[0], c.vs[1],
                                      c.vs[2], T::BN, T::SW);
   if (err) return err;
-  static SmemOptIn opt;
+  static hp::SmemOptIn opt;
   cudaError_t e = opt.ensure(flash_fwd_kernel<DP>, T::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((prm.nq + T::BM - 1) / T::BM, c.B * prm.H);
@@ -269,7 +269,7 @@ extern "C" int flash_fwd(int device, void* stream,
                          float* lse, int B, int H, int nq, int nk, int d, int kv_len,
                          float scale, int dtype) {
   if (dtype != fa::kBF16 || !(scale > 0.f) || kv_len < 1 || kv_len > nk) return (int)cudaErrorInvalidValue;
-  cudaError_t err = fa::use_device(device);
+  cudaError_t err = hp::use_device(device);
   if (err != cudaSuccess) return (int)err;
   fa::FwdParams prm = {};
   prm.o = static_cast<__nv_bfloat16*>(o);

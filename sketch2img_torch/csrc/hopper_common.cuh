@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks of the flash forward (flash_fwd.cu) and
-// dK/dV (flash_bwd_dkv.cu) kernels, in raw PTX: TMA tile loads, mbarriers,
-// wgmma shared-memory descriptors, warpgroup register hand-over and named
-// barriers; on the host, the tensor maps TMA reads the (B, H, N, d) operands
-// through.
+// Hopper (sm_90a) building blocks of the flash forward (flash_fwd.cu), dQ
+// (flash_bwd_dq.cu) and dK/dV (flash_bwd_dkv.cu) kernels and the one-pass
+// GroupNorm (groupnorm_silu.cu), in raw PTX: TMA tile loads and bulk
+// copies, mbarriers, wgmma shared-memory descriptors, warpgroup register
+// hand-over, named barriers and cluster barriers with distributed shared
+// memory; on the host, launch helpers and the tensor maps TMA reads the
+// (B, H, N, d) operands through.
 //
 // Shared-memory tiles. A (rows x DP) bf16 tile is kept as DP / PW column
 // panels of PW = SW / 2 elements, panel p holding columns [p PW, p PW + PW)
@@ -25,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "wgmma_ops.cuh"
 
@@ -117,6 +121,44 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const TmaOperand& op, uin
       : "memory");
 }
 
+// ---- bulk copies and clusters ---------------------------------------------
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// memory to this block's shared memory at `dst`, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// barrier.cluster in two halves: every thread of every block of the
+// cluster arrives (releasing its shared-memory writes), then waits
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at shared-memory address `addr` of the cluster's block `rank`
+// (distributed shared memory)
+__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -165,6 +207,34 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
+
+// ---- host: launch helpers -------------------------------------------------
+
+// Make `device` current unless it already is (the entry points run on
+// every call; cudaSetDevice is not free).
+inline cudaError_t use_device(int device) {
+  int cur = -1;
+  if (cudaGetDevice(&cur) == cudaSuccess && cur == device) return cudaSuccess;
+  return cudaSetDevice(device);
+}
+
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and
+// device: each launcher instantiation keeps one of these in a static.
+struct SmemOptIn {
+  std::atomic<unsigned long long> done{0};
+
+  template <typename Kernel>
+  cudaError_t ensure(Kernel kernel, size_t smem) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) done.fetch_or(bit);
+    return err;
+  }
+};
 
 // ---- host: tensor maps -----------------------------------------------------
 

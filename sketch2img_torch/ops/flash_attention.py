@@ -8,7 +8,9 @@ one kernel per direction covers every head dim up to 256:
 
   * ``csrc/flash_fwd.cu``      O = softmax(scale QK^T) V and the row LSE
                                (TMA + wgmma, warp-specialised)
-  * ``csrc/flash_bwd_dq.cu``   dQ, recomputing P from the LSE (mma.sync)
+  * ``csrc/flash_bwd_dq.cu``   dQ, recomputing P from the LSE, and
+                               delta = rowsum(dO O) for the dK/dV pass
+                               (TMA + wgmma, warp-specialised)
   * ``csrc/flash_bwd_dkv.cu``  dK and dV, recomputing P from the LSE
                                (TMA + wgmma, warp-specialised)
 
@@ -17,9 +19,9 @@ bf16 tensors of shape (B, H, N, d) with a unit stride on d, and keep
 softmax statistics and accumulators in fp32. Each source file states what
 bounds it and how it is laid out.
 
-TMA reads the forward's and dK/dV's operands straight from their strided
-views (the model's heads-views of (B, N, H*d) projections included) when
-the base is 16-byte aligned and every stride is a multiple of 16 bytes;
+TMA reads every operand straight from its strided view (the model's
+heads-views of (B, N, H*d) projections included) when the base is 16-byte
+aligned and every stride is a multiple of 16 bytes;
 ``prepare_operand`` copies an operand that misses that into a buffer with
 a padded row pitch and counts the copy in ``TMA_COPIES`` (0 on both
 paths). fp32 inputs on the card are cast to bf16 by the wrapper (the
@@ -37,9 +39,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from sketch2img_torch.utils.device import current_stream_handle
+
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 #: operands the wrapper had to copy before TMA would take them, by kernel
-TMA_COPIES = {"flash_fwd": 0, "flash_bwd_dkv": 0}
+TMA_COPIES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh", "wgmma_ops.cuh")
 MAX_HEAD_DIM = 256
@@ -47,6 +51,16 @@ MAX_HEAD_DIM = 256
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _lib = None
+
+_ptr, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_VIEW = [_ptr, _i64, _i64, _i64]  # a tensor's base and its B, H, N strides
+_DIMS = [_i32] * 6 + [_f32, _i32]  # B, H, nq, nk, d, kv_len, scale, dtype
+#: the C entry points' parameters (device, stream, ...); each returns a CUDA error
+ARGTYPES = {
+    "flash_fwd": [_i32, _ptr] + _VIEW * 4 + [_ptr] + _DIMS,
+    "flash_bwd_dq": [_i32, _ptr] + _VIEW * 5 + [_ptr, _ptr] + _VIEW + _DIMS + [_i32],
+    "flash_bwd_dkv": [_i32, _ptr] + _VIEW * 4 + [_ptr, _ptr] + _VIEW * 2 + _DIMS,
+}
 
 
 def reset_launch_counts() -> None:
@@ -64,14 +78,9 @@ def load_library(verbose: bool = False):
 
         lib = ctypes.CDLL(build_library("flash_attention", SOURCES, HEADERS,
                                         verbose=verbose))
-        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        view = [ptr, i64, i64, i64]
-        dims = [i32] * 6 + [f32, i32]  # B, H, nq, nk, d, kv_len, scale, dtype
-        lib.flash_fwd.argtypes = [i32, ptr] + view * 4 + [ptr] + dims
-        lib.flash_bwd_dq.argtypes = [i32, ptr] + view * 4 + [ptr, ptr] + view + dims
-        lib.flash_bwd_dkv.argtypes = [i32, ptr] + view * 4 + [ptr, ptr] + view * 2 + dims
-        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
-            fn.restype = i32
+        for name, argtypes in ARGTYPES.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -118,6 +127,12 @@ def flash_forward_plain(q, k, v, scale: float, kv_len: Optional[int] = None):
     return o.to(q.dtype), lse
 
 
+def flash_delta_plain(o, do):
+    """delta = rowsum(dO * O) in fp32, (B, H, nq): what the dQ kernel
+    computes and hands to the dK/dV kernel."""
+    return (do.float() * o.float()).sum(-1)
+
+
 def flash_backward_plain(q, k, v, o, lse, do, scale: float,
                          kv_len: Optional[int] = None):
     """-> (dQ, dK, dV), recomputing P from ``lse``; P and dS are rounded to
@@ -125,7 +140,7 @@ def flash_backward_plain(q, k, v, o, lse, do, scale: float,
     dt = q.dtype
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     p = torch.exp(_logits(q, k, scale, kv_len) - lse[..., None])
-    delta = (dof * o.float()).sum(-1, keepdim=True)
+    delta = flash_delta_plain(o, do)[..., None]
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     ds = (p * (dp - delta) * scale).to(dt).float()
@@ -230,36 +245,78 @@ def flash_forward(q, k, v, scale: float, kv_len: Optional[int] = None
     o = _heads_merged(b, h, nq, d, q)
     lse = torch.empty(b, h, nq, dtype=torch.float32, device=q.device)
     lib = load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = current_stream_handle(q.device)
     _launch("flash_fwd", lib.flash_fwd, q.device.index, stream,
             *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(),
             b, h, nq, nk, d, _kv_len(nk, kv_len), float(scale), _DTYPE_CODES[torch.bfloat16])
     return (o if dtype == torch.bfloat16 else o.to(dtype)), lse
 
 
-def flash_backward(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = None):
-    """-> (dQ, dK, dV). delta = rowsum(dO * O) is computed here in plain
-    torch, as the JAX package computes it outside its kernels."""
-    if q.device.type == "cpu":
-        return flash_backward_plain(q, k, v, o, lse, do, scale, kv_len)
-    _check_cuda(scale, q, k, v, do)
-    dtype = q.dtype
+def backward_operands(q, k, v, o, do):
+    """-> (q, k, v, dO, O) as the backward kernels read them: bf16 that TMA
+    takes in place (``_prepare``). q, k, v and dO feed both kernels and count
+    their copies under dK/dV; O feeds the dQ kernel alone (for delta)."""
     q, k, v, do = _prepare("flash_bwd_dkv", q, k, v, do)
+    (o,) = _prepare("flash_bwd_dq", o)
+    return q, k, v, do, o
+
+
+def _backward_call(q, k, v, o, lse, do, scale, kv_len):
+    """Checked and prepared operands of a backward call (the caller keeps
+    them alive until its launches are enqueued: a copy freed earlier could
+    be handed to an output), and the launch arguments both kernels share."""
+    _check_cuda(scale, q, k, v, do)
+    ops = backward_operands(q, k, v, o, do)
+    q, k, v, do, _ = ops
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    kvl = _kv_len(nk, kv_len)
     lse = lse.float().contiguous()
-    delta = (do.float() * o.float()).sum(-1).contiguous()
+    shared = (q.device.index, current_stream_handle(q.device),
+              *_view(q), *_view(k), *_view(v), *_view(do))
+    tail = (b, h, nq, nk, d, _kv_len(nk, kv_len), float(scale), _DTYPE_CODES[torch.bfloat16])
+    return ops, lse, shared, tail
+
+
+def _dq_launch(ops, lse, shared, tail, variant: int):
+    q, o = ops[0], ops[4]
+    b, h, nq, d = q.shape
+    delta = torch.empty(b, h, nq, dtype=torch.float32, device=q.device)
     dq = _heads_merged(b, h, nq, d, q)
-    dk = _heads_merged(b, h, nk, d, q)
-    dv = _heads_merged(b, h, nk, d, q)
-    lib = load_library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (q.device.index, stream, *_view(q), *_view(k), *_view(v), *_view(do),
-              lse.data_ptr(), delta.data_ptr())
-    tail = (b, h, nq, nk, d, kvl, float(scale), _DTYPE_CODES[torch.bfloat16])
-    _launch("flash_bwd_dq", lib.flash_bwd_dq, *common, *_view(dq), *tail)
-    _launch("flash_bwd_dkv", lib.flash_bwd_dkv, *common, *_view(dk), *_view(dv), *tail)
+    _launch("flash_bwd_dq", load_library().flash_bwd_dq, *shared, *_view(o), lse.data_ptr(),
+            delta.data_ptr(), *_view(dq), *tail, variant)
+    return dq, delta
+
+
+def flash_backward_dq(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = None,
+                      variant: int = 0):
+    """-> (dQ in q's dtype, delta in fp32 (B, H, nq)) from the dQ kernel
+    alone. ``variant`` picks its block shape: 0 as ``flash_backward`` does
+    (64-query blocks where 128-query ones leave SMs idle), 1: 128-query
+    blocks, 2: 64-query blocks (head dims above 160 have one shape)."""
+    if q.device.type == "cpu":
+        dq = flash_backward_plain(q, k, v, o, lse, do, scale, kv_len)[0]
+        return dq, flash_delta_plain(o, do)
+    dtype = q.dtype
+    ops, lse, shared, tail = _backward_call(q, k, v, o, lse, do, scale, kv_len)
+    dq, delta = _dq_launch(ops, lse, shared, tail, variant)
+    return dq.to(dtype), delta
+
+
+def flash_backward(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = None):
+    """-> (dQ, dK, dV). The dQ kernel computes delta = rowsum(dO * O) (the
+    JAX package computes it outside its kernels) and writes it for the
+    dK/dV kernel, which follows on the same stream."""
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, o, lse, do, scale, kv_len)
+    dtype = q.dtype
+    ops, lse, shared, tail = _backward_call(q, k, v, o, lse, do, scale, kv_len)
+    dq, delta = _dq_launch(ops, lse, shared, tail, 0)
+    b, h, _, d = ops[0].shape
+    nk = tail[3]
+    dk = _heads_merged(b, h, nk, d, ops[0])
+    dv = _heads_merged(b, h, nk, d, ops[0])
+    _launch("flash_bwd_dkv", load_library().flash_bwd_dkv, *shared, lse.data_ptr(),
+            delta.data_ptr(), *_view(dk), *_view(dv), *tail)
     if dtype != torch.bfloat16:
         dq, dk, dv = dq.to(dtype), dk.to(dtype), dv.to(dtype)
     return dq, dk, dv

@@ -32,3 +32,11 @@ def set_precision() -> None:
     VAE and text encoder run in their compute dtype (bf16 on the card)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def current_stream_handle(device: torch.device) -> int:
+    """Handle of PyTorch's current CUDA stream on ``device`` (a CUDA device
+    with an index), for a kernel launched through ctypes. The raw getter
+    skips building a ``torch.cuda.Stream`` object, a few microseconds a call
+    on the wrappers' hot path."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -42,6 +42,7 @@ from sketch2img_torch.models.unet import UNet2DCondition, UNetConfig
 from sketch2img_torch.models.vae import AutoencoderKL, VAEConfig
 
 from torch_sd_mirror import TorchMiniUNet, TorchMiniVAE
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 UNET_KW = dict(block_out_channels=(32, 64), cross_attn=(True, False), num_heads=2,
                cross_attention_dim=24)

@@ -19,6 +19,8 @@ from sketch2img_tpu.ops import flash_attention as jfa
 from sketch2img_torch.ops import attention as tattn
 from sketch2img_torch.ops import flash_attention as tfa
 
+from torch_port_util import c_params, one_torch_thread  # noqa: F401 (autouse)
+
 # fp32 on both sides; the kernels sum in blocks and in the exp2 domain, the
 # plain version in one pass: agreement to ~1e-6, checked at 2e-5
 TOL = 2e-5
@@ -86,6 +88,26 @@ def test_kv_len_tail_matches_jax_kernels(jax_layout):
         np.testing.assert_allclose(a, w, rtol=TOL, atol=TOL)
     for g in ggot[1:]:
         assert np.all(g[:, :, kv_len:] == 0.0)
+
+
+def test_backward_dq_and_delta_match_jax_backward():
+    """The port's dQ entry (``flash_backward_dq``: on the CPU its plain
+    version, on the card the dQ kernel that also writes delta) against the
+    JAX package's ``_flash_backward`` (classic layout, interpret mode), fed
+    the same O and LSE from the JAX forward, with a kv_len tail; delta
+    against rowsum(dO * O). fp32: TOL."""
+    b, h, nq, nk, d, kv_len = 1, 2, 256, 300, 40, 290
+    q, k, v = _qkv(4, b, h, nq, nk, d)
+    do = np.random.RandomState(5).randn(b, h, nq, d).astype(np.float32)
+    o, lse = jfa._flash_forward(*(jnp.asarray(x) for x in (q, k, v)), d ** -0.5, kv_len)
+    want = np.asarray(jfa._flash_backward(*(jnp.asarray(x) for x in (q, k, v)), o, lse,
+                                          jnp.asarray(do), d ** -0.5, kv_len)[0])
+    lse_t = torch.tensor(np.asarray(lse)[:, :nq, 0]).view(b, h, nq)
+    o_t = torch.tensor(np.asarray(o))
+    dq, delta = tfa.flash_backward_dq(*(torch.tensor(x) for x in (q, k, v)), o_t, lse_t,
+                                      torch.tensor(do), d ** -0.5, kv_len)
+    np.testing.assert_allclose(dq.numpy(), want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(delta.numpy(), (do * np.asarray(o)).sum(-1), rtol=TOL, atol=TOL)
 
 
 def test_lse_is_natural_log():
@@ -216,6 +238,23 @@ def test_prepare_operand_copies_only_what_tma_refuses(case):
         assert y.stride(2) == -(-x.shape[3] // 8) * 8
 
 
+@pytest.mark.parametrize("d,copied", [(40, False), (36, True)])
+def test_backward_operands_include_o_for_dq(d, copied):
+    """The backward's operands are q, k, v, dO (read by both kernels,
+    copies counted under dK/dV) and O (read by the dQ kernel for delta,
+    counted under dQ); the forward's O, a heads-merged view, is taken in
+    place when its rows are 16-byte multiples."""
+    q, k, v, do, o = (_heads_view(1, 2, 64, d, seed=i) for i in range(5))
+    tfa.reset_launch_counts()
+    out = tfa.backward_operands(q, k, v, o, do)
+    assert len(out) == 5 and all(tfa.tma_accepts(x) for x in out)
+    for got, x in zip(out, (q, k, v, do, o)):
+        assert torch.equal(got.float(), x.float())
+        assert (got is x) is not copied
+    assert tfa.TMA_COPIES == {"flash_fwd": 0, "flash_bwd_dq": int(copied),
+                              "flash_bwd_dkv": 4 * int(copied)}
+
+
 @pytest.mark.parametrize("nk,kv_len,want", [(384, None, 384), (384, 300, 300), (384, 999, 384),
                                             (77, 77, 77)])
 def test_kv_len_is_clamped_to_the_keys(nk, kv_len, want):
@@ -226,6 +265,13 @@ def test_kv_len_is_clamped_to_the_keys(nk, kv_len, want):
 def test_kv_len_below_one_is_refused(kv_len):
     with pytest.raises(ValueError):
         tfa._kv_len(384, kv_len)
+
+
+@pytest.mark.parametrize("name", sorted(tfa.ARGTYPES))
+def test_ctypes_signatures_match_the_sources(name):
+    """The wrapper's ctypes parameters of each kernel's C entry point are
+    those of its source (csrc/<name>.cu), one for one."""
+    assert tfa.ARGTYPES[name] == c_params(name + ".cu", name)
 
 
 def test_committed_wgmma_header_is_generated():
@@ -285,8 +331,11 @@ def test_cuda_kernels_match_plain_version_on_card():
         torch.cuda.synchronize()
         case = (b, h, nq, nk, d, kv_len, layout)
         assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}, case
-        copied = d % 8 != 0  # every operand: q, k, v forward; q, k, v, dO backward
-        assert tfa.TMA_COPIES == {"flash_fwd": 3 * copied, "flash_bwd_dkv": 4 * copied}, case
+        # every operand: q, k, v forward; q, k, v, dO backward (and the
+        # forward's O, which the dQ kernel reads for delta)
+        copied = d % 8 != 0
+        assert tfa.TMA_COPIES == {"flash_fwd": 3 * copied, "flash_bwd_dq": copied,
+                                  "flash_bwd_dkv": 4 * copied}, case
         assert (lse - lse_ref).abs().max().item() <= 1e-3, case
         for name, a, r in zip(("O", "dQ", "dK", "dV"), (o,) + tuple(got), (o_ref,) + tuple(want)):
             assert a.dtype == q.dtype and a.shape == r.shape, (case, name)
@@ -295,3 +344,31 @@ def test_cuda_kernels_match_plain_version_on_card():
         if kv_len is not None:
             assert got[1][:, :, kv_len:].abs().max().item() == 0.0, case
             assert got[2][:, :, kv_len:].abs().max().item() == 0.0, case
+
+
+@pytest.mark.cuda
+def test_cuda_dq_block_shapes_and_delta_match_plain_version_on_card():
+    """The dQ kernel in each block shape (variant 1: 128-query blocks; 2:
+    64-query blocks taking alternate key tiles; head dims above 160 have
+    one shape) at ``CARD_CASES``, against the plain dQ (2% of its largest
+    value, as above) and its delta against the plain rowsum(dO * O) (fp32
+    sums of exact bf16 products in another order: 1e-4 of the largest
+    |delta|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `pytest -m cuda "
+                    "tests/test_torch_flash_attention.py` on the GPU machine")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b, h, nq, nk, d, kv_len, layout in CARD_CASES:
+        q, k, v, do = (torch.randn(b, h, n, d, generator=gen, device="cuda").bfloat16()
+                       for n in (nq, nk, nk, nq))
+        o, lse = tfa.flash_forward_plain(q, k, v, d ** -0.5, kv_len)
+        want = tfa.flash_backward_plain(q, k, v, o, lse, do, d ** -0.5, kv_len)[0]
+        want_delta = tfa.flash_delta_plain(o, do)
+        for variant in (0, 1, 2):
+            dq, delta = tfa.flash_backward_dq(q, k, v, o, lse, do, d ** -0.5, kv_len, variant)
+            torch.cuda.synchronize()
+            case = (b, h, nq, nk, d, kv_len, layout, variant)
+            err = (dq.float() - want.float()).abs().max().item()
+            assert err <= 2e-2 * want.float().abs().max().item(), (case, err)
+            err = (delta - want_delta).abs().max().item()
+            assert err <= 1e-4 * want_delta.abs().max().item(), (case, err)

@@ -10,6 +10,8 @@ op. A last test, marked ``cuda``, holds the kernel against the plain
 version on a card and skips elsewhere.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,8 @@ import torch
 
 from sketch2img_tpu.ops import groupnorm as jgn
 from sketch2img_torch.ops import groupnorm as tgn
+
+from torch_port_util import c_params, c_struct, one_torch_thread  # noqa: F401
 
 # tiny configs of tests/torch_port_stack.py, repeated here so that this file
 # imports no flax (the machine with the card has jax but not flax)
@@ -130,6 +134,147 @@ def test_split_plan_covers_each_group(b, c, hw):
         assert s * b * 32 >= 528  # large tensors fill the card: four blocks per SM
 
 
+# the parts of both paths with the batches each runs at: the UNet at 1 and
+# 2 (sketch-guided) and 16 (injection, whose injected UNet has the same
+# norms), the VAE encoder at 1 and its decoder at 1 and 8
+PATH_BATCHES = [("unet", 1), ("unet", 2), ("unet", 16), ("vae_encoder", 1),
+                ("vae_decoder", 1), ("vae_decoder", 8)]
+# (C, H, W) of the norms whose groups (2 MB and up) take the split variant
+_SPLIT_SHAPES = {
+    ("unet", 2): set(),
+    ("vae_encoder", 2): {(128, 512, 512)},
+    ("vae_decoder", 2): {(128, 512, 512), (256, 512, 512), (512, 256, 256)},
+    ("unet", 4): set(),
+    ("vae_encoder", 4): {(128, 512, 512), (256, 256, 256)},
+    ("vae_decoder", 4): {(128, 512, 512), (256, 512, 512), (256, 256, 256),
+                         (512, 256, 256)},
+}
+
+
+@pytest.fixture(scope="module")
+def path_shapes():
+    """{part: sorted (C, H, W) of its GroupNorm calls}, from one pass of the
+    full-width SD1.5 UNet and VAE on the meta device (shapes only, nothing
+    is computed)."""
+    from sketch2img_torch.models.unet import SD15_CONFIG, UNet2DCondition
+    from sketch2img_torch.models.vae import SD15_VAE_CONFIG, AutoencoderKL
+    from sketch2img_torch.ops.attention import set_default_attention_backend
+
+    calls, real = [], tgn._forward
+    tgn._forward = lambda x, *a: calls.append(tuple(x.shape[1:])) or torch.empty_like(x)
+    set_default_attention_backend("plain")
+    try:
+        with torch.device("meta"), torch.no_grad():
+            unet, vae = UNet2DCondition(SD15_CONFIG), AutoencoderKL(SD15_VAE_CONFIG)
+            unet(torch.empty(1, 4, 64, 64), torch.tensor([500]), torch.empty(1, 77, 768))
+            n_unet = len(calls)
+            vae.encode(torch.empty(1, 3, 512, 512))
+            n_enc = len(calls) - n_unet
+            vae.decode(torch.empty(1, 4, 64, 64))
+    finally:
+        tgn._forward = real
+        set_default_attention_backend("auto")
+    assert (n_unet, n_enc, len(calls) - n_unet - n_enc) == (61, 22, 30)
+    return {"unet": sorted(set(calls[:n_unet])),
+            "vae_encoder": sorted(set(calls[n_unet:n_unet + n_enc])),
+            "vae_decoder": sorted(set(calls[n_unet + n_enc:]))}
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("part,b", PATH_BATCHES)
+def test_plan_takes_one_pass_with_a_legal_cluster_wherever_a_group_fits(path_shapes, part, b,
+                                                                        elem_bytes):
+    """Every GroupNorm shape of one part of a path at one batch: groups of
+    up to 1 MB take the one-pass variant on a cluster of 1-16 blocks (a
+    power of two), one block for a group of up to 20 KB, with slices that
+    cover the group and hold at most 96 KB (two blocks an SM); larger groups
+    (2 MB and up) take the split variant: in bf16 the VAE's 512^2 norms and
+    its decoder's 256^2 norms at 512 channels."""
+    es = elem_bytes
+    split = set()
+    for c, h, w in path_shapes[part]:
+        n = c // 32 * h * w
+        plan = tgn.launch_plan(b, c, h * w, 32, es)
+        assert (plan.kernel == tgn.ONE_PASS) == (n * es <= 2 ** 20), (b, c, h, w, es)
+        if plan.kernel == tgn.ONE_PASS:
+            assert plan.cluster in (1, 2, 4, 8, 16) and plan.splits == 1
+            assert plan.cluster == 1 or n * es > 20 * 1024
+            assert plan.chunk % 8 == 0
+            assert (plan.cluster - 1) * plan.chunk < n <= plan.cluster * plan.chunk
+            assert plan.smem == plan.chunk * es <= 96 * 1024
+            assert plan.threads in (128, 256, 512)
+        else:
+            assert plan.kernel == tgn.SPLIT and plan.cluster == 1 and plan.smem == 0
+            assert (plan.splits, plan.chunk) == tgn.split_plan(b, c, h * w, 32)
+            split.add((c, h, w))
+    assert split == _SPLIT_SHAPES[part, es]
+
+
+@pytest.mark.parametrize("b,c,hw,es,want", [
+    (1, 32, 10240, 2, (tgn.ONE_PASS, 1, 10240)),     # a 20 KB group: one block
+    (1, 32, 5120, 4, (tgn.ONE_PASS, 1, 5120)),       # the same in fp32
+    # 16 bytes more: 32 groups are too few to fill the card, so the group is
+    # cut into slices of about 10 KB (4 of them) rather than one of 96 KB
+    (1, 32, 10248, 2, (tgn.ONE_PASS, 4, 2568)),
+    (16, 320, 4096, 2, (tgn.ONE_PASS, 1, 40960)),    # 80 KB, but 512 groups fill the card
+    (1, 32, 786432, 2, (tgn.ONE_PASS, 16, 49152)),   # 16 slices of 96 KB: the largest group
+    (1, 32, 393216, 4, (tgn.ONE_PASS, 16, 24576)),   # the same in fp32
+    (1, 32, 786440, 2, (tgn.SPLIT, 1, None)),        # 16 bytes more: split
+    (1, 32, 393218, 4, (tgn.SPLIT, 1, None)),        # the same in fp32
+])
+def test_plan_at_the_variants_boundaries(b, c, hw, es, want):
+    """Group sizes on either side of the rule's thresholds (one block up to
+    20 KB, one pass up to 16 slices of 96 KB) and a batch that fills the
+    card with groups alone."""
+    plan = tgn.launch_plan(b, c, hw, 32, es)
+    kernel, cluster, chunk = want
+    assert (plan.kernel, plan.cluster) == (kernel, cluster)
+    if kernel == tgn.ONE_PASS:
+        assert plan.chunk == chunk and plan.smem == chunk * es and plan.splits == 1
+    else:
+        assert (plan.splits, plan.chunk) == tgn.split_plan(b, c, hw, 32)
+
+
+def test_plan_is_cached_per_key_and_variants_can_be_forced():
+    """One plan per shape and dtype (and one C struct per call key); a
+    variant can be forced, one pass only where the group fits."""
+    plan = tgn.launch_plan(1, 320, 64 * 64, 32, 2)
+    assert tgn.launch_plan(1, 320, 64 * 64, 32, 2) is plan
+    assert plan == (tgn.ONE_PASS, 8, 5120, 1, 10240, 256)
+    # forced one pass on a 2 MB group: 16 blocks of 128 KB
+    assert tgn.launch_plan(1, 128, 512 * 512, 32, 2, tgn.ONE_PASS) == (
+        tgn.ONE_PASS, 16, 65536, 1, 131072, 512)
+    key = ((1, 320, 64, 64), torch.bfloat16, torch.float32, 32, 1e-5, True, 0, None)
+    call = tgn._call_plan(*key)
+    assert tgn._call_plan(*key) is call and call.plan == plan
+    st = call.struct
+    assert (st.B, st.C, st.HW, st.G, st.variant, st.cluster, st.S, st.chunk, st.smem,
+            st.threads) == (1, 320, 4096, 32, 0, 8, 1, 5120, 10240, 256)
+    assert (st.silu, st.dtype, st.pdtype) == (1, 0, 1) and abs(st.eps - 1e-5) < 1e-12
+    assert ctypes.sizeof(tgn._PlanStruct) == 64  # the C struct: 8 ints, a long long, 6 words
+    forced = tgn.launch_plan(1, 320, 64 * 64, 32, 2, tgn.SPLIT)
+    assert forced.kernel == tgn.SPLIT and forced.cluster == 1
+    with pytest.raises(ValueError, match="split variant"):
+        tgn.launch_plan(1, 256, 512 * 512, 32, 2, tgn.ONE_PASS)  # 4 MB
+    with pytest.raises(ValueError, match="unknown"):
+        tgn.launch_plan(1, 256, 64 * 64, 32, 2, "groupnorm_silu_fast")
+    assert set(tgn.LAUNCHES) == {tgn.ONE_PASS, tgn.SPLIT}
+
+
+@pytest.mark.parametrize("name", sorted(tgn.ARGTYPES))
+def test_ctypes_signatures_match_the_source(name):
+    """The wrapper's ctypes parameters of each C entry point are those of
+    csrc/groupnorm_silu.cu, one for one (the plan by pointer to the struct
+    below)."""
+    plan = {"gn::Plan": ctypes.POINTER(tgn._PlanStruct)}
+    assert tgn.ARGTYPES[name] == c_params("groupnorm_silu.cu", name, plan)
+
+
+def test_plan_struct_matches_the_source():
+    """``_PlanStruct`` is the kernel's ``gn::Plan``, field for field."""
+    assert tgn._PlanStruct._fields_ == c_struct("groupnorm_silu.cu", "Plan")
+
+
 def test_every_unet_and_vae_groupnorm_goes_through_the_op(monkeypatch):
     """Counts calls of the op's forward during one pass of a tiny UNet and
     VAE: 2 per resnet, 1 per SpatialTransformer, 1 per VAE attention, 1 per
@@ -195,3 +340,39 @@ def test_cuda_kernel_matches_plain_version_on_card():
         torch.cuda.synchronize()
         tol = (1e-2 if dt == torch.bfloat16 else 1e-4) * want.float().abs().max().item()
         assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_variants_match_plain_version_on_card():
+    """Both variants on both sides of their boundary, in bf16 and fp32: the
+    largest groups one pass takes (2 MB: 16-block clusters of 128 KB,
+    forced; the plan sends them to the split variant), 1 MB groups (the
+    largest the plan gives one pass), 4 MB groups (split only), a one-block
+    group, and H*W not a multiple of 8 (element-wise loads), each planned
+    and, where the group fits, forced into the other variant. bf16: max error within 1% of max|plain|
+    (one bf16 rounding of the output, 2^-9, plus another summation order);
+    fp32: 1e-4 of it (summation order only). Launches counted by variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `pytest -m cuda tests/test_torch_groupnorm.py` "
+                    "on the GPU machine")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for shape, dt in (((1, 128, 512, 512), bf16), ((1, 256, 512, 512), bf16),
+                      ((1, 256, 256, 256), bf16), ((1, 256, 256, 256), fp32),
+                      ((1, 128, 512, 512), fp32),
+                      ((1, 1280, 8, 8), bf16), ((3, 96, 7, 5), fp32), ((2, 64, 9, 9), bf16)):
+        b, c, h, w = shape
+        x = (torch.randn(*shape, generator=gen, device="cuda") + 0.5).to(dt)
+        wt = torch.rand(c, generator=gen, device="cuda").to(dt) + 0.5
+        bs = torch.randn(c, generator=gen, device="cuda").to(dt)
+        want = tgn.group_norm_silu_plain(x, wt, bs, 32, 1e-6, True)
+        tol = (1e-2 if dt == bf16 else 1e-4) * want.float().abs().max().item()
+        fits = x.element_size() * c // 32 * h * w <= 16 * (200 * 1024 - 16)
+        for kernel in (tgn.ONE_PASS, tgn.SPLIT):
+            if kernel == tgn.ONE_PASS and not fits:
+                continue
+            tgn.reset_launch_counts()
+            got = tgn.group_norm_silu_kernel(x, wt, bs, 32, 1e-6, True, kernel=kernel)
+            torch.cuda.synchronize()
+            assert tgn.LAUNCHES == {k: int(k == kernel) for k in tgn.LAUNCHES}
+            assert (got.float() - want.float()).abs().max().item() <= tol, (shape, dt, kernel)

@@ -28,9 +28,30 @@ print(len(names), bad)
 """
 
 
-def test_port_imports_no_jax():
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
-                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": REPO})
+@pytest.fixture(scope="module")
+def subprocesses(tmp_path_factory):
+    """The file's three subprocesses, started together (each spends most of
+    its time importing torch): the import probe, and, where there is no
+    GPU, ``chip_smoke.py`` run from the repository and alone in an empty
+    directory. -> {name: CompletedProcess}."""
+    alone = str(tmp_path_factory.mktemp("alone"))
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    jobs = {"probe": subprocess.Popen([sys.executable, "-c", _PROBE], cwd=REPO, text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      env={**os.environ, "PYTHONPATH": REPO})}
+    if not torch.cuda.is_available():  # on a GPU machine chip_smoke.py would run in full
+        for name, cwd in (("smoke_repo", REPO), ("smoke_alone", alone)):
+            jobs[name] = subprocess.Popen([sys.executable, "chip_smoke.py"], cwd=cwd, text=True,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    out = {}
+    for name, proc in jobs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        out[name] = subprocess.CompletedProcess(proc.args, proc.returncode, stdout, stderr)
+    return out
+
+
+def test_port_imports_no_jax(subprocesses):
+    out = subprocesses["probe"]
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
     assert int(n) >= 15 and bad == "[]", out.stdout
@@ -51,15 +72,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
+def test_chip_smoke_fails_without_a_gpu_or_the_repo(subprocesses):
     """No GPU here: exit non-zero with no result line. Alone in a directory
     it fails as well (on a GPU machine because the package is missing)."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU")
-    for cwd in (REPO, str(tmp_path)):
-        if cwd != REPO:
-            shutil.copy(os.path.join(REPO, "chip_smoke.py"), cwd)
-        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
-                             text=True, timeout=300)
+    for name in ("smoke_repo", "smoke_alone"):
+        out = subprocesses[name]
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout

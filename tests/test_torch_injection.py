@@ -30,6 +30,7 @@ from sketch2img_torch.pipelines.attn_injected import cfg_injection_state, sample
 from torch_port_stack import (
     UNET_KW, VISION_KW, clip_vision_pair, injected_unet_pair, nchw, nhwc, t,
 )
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 CTX_DIM = 16  # the injected tiny UNet's CLIP width
 
@@ -211,14 +212,15 @@ def test_clip_guided_pipeline_image_matches_jax(monkeypatch):
     fake = types.SimpleNamespace(clip=types.SimpleNamespace(
         config=types.SimpleNamespace(image_size=224)))
     px = JPipe._preprocess_sketch(fake, sk)[None]
-    hidden = JVision(JVisionConfig(**VISION_KW)).apply({"params": jclip_params}, px)
+    hidden = jax.jit(lambda p, x: JVision(JVisionConfig(**VISION_KW)).apply({"params": p}, x))(
+        jclip_params, px)
     state = jnp.concatenate([jnp.zeros((2,) + hidden.shape[1:]),
                              jnp.broadcast_to(hidden, (2,) + hidden.shape[1:])])
     tok = FakeTokenizer()
     ids = [np.asarray(tok(x, padding="max_length", max_length=77).input_ids)
            for x in (["", ""], prompts)]
-    ctx = jnp.concatenate([jax.jit(lambda p, i: jc.apply({"params": p}, i))(jcp, i)
-                           for i in ids])
+    encode = jax.jit(lambda p, i: jc.apply({"params": p}, i))  # one trace for both halves
+    ctx = jnp.concatenate([encode(jcp, i) for i in ids])
     fn = make_attn_injected_fn(
         lambda p, x, tt, c, s, sc: junet_mod.apply({"params": p}, x, tt, c, injection_states=s,
                                                    injection_scale=sc),

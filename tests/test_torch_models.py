@@ -30,6 +30,7 @@ from sketch2img_torch.ops.resize import resize_bilinear
 from torch_port_stack import (
     clip_pair, lgp_pair, nchw, nhwc, t, unet_pair, vae_pair,
 )
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

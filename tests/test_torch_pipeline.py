@@ -24,6 +24,7 @@ from sketch2img_torch.pipelines.sketch_guided import sample_sketch_guided
 from sketch2img_torch.pipelines.text2img import latents_to_image, sample_text2img
 
 from torch_port_stack import lgp_pair, nchw, nhwc, t, unet_pair, vae_pair
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ from sketch2img_torch.models import safety_checker as tsc
 from sketch2img_torch.models.clip_vision import CLIPVisionConfig
 
 from torch_port_stack import _perturb, nchw, nhwc, t
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(image_size=28, patch_size=14, hidden_size=32, num_layers=2, num_heads=4,
             intermediate_size=64)

@@ -12,6 +12,8 @@ import torch
 from sketch2img_tpu.core import schedulers as js
 from sketch2img_torch.core import schedulers as ts
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse)
+
 _GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "scheduler_golden.json")
 
 
