@@ -45,9 +45,24 @@ Phases, each printing its own lines:
               checker (seeded random weights, bf16), one 512x512 request at
               batch 8, 25 DPM-Solver++ steps, guidance 7.5, strength 0.5, one
               sketch, launch counters zeroed just before and read just after;
-  5. profile  (only when asked: --phases build,profile) device time by
-              kernel over a 4-step sketch-guided request and a 5-step batch-8
-              injection request, from torch.profiler.
+  5. train_lgp     the LGP trainer (``apps/train_lgp.train_lgp``) on the
+              full-width stack plus a full-width anime2sketch generator:
+              batch 4 at 512^2 from a seeded folder of synthetic PNG images
+              with captions, sketches made at 1024^2, uncached, AdamW, four
+              steps (one warm-up, three counted), launch counters zeroed just
+              before the call and read just after; finite losses, every LGP
+              tensor moved, every frozen one bit-identical, the launch counts
+              one step implies, a checkpoint save/restore round trip;
+  6. train_inject  the injection trainer (``apps/train_attn_inject``):
+              fresh injection blocks and a ViT-L/14 trained (fp32 masters,
+              bf16 compute) through the frozen UNet, sketches at 512^2, four
+              steps as above and the same checks, then one step's gradient
+              through the kernels against the plain attention and GroupNorm
+              routes (cosine over every trainable gradient);
+  7. profile  (only when asked: --phases build,profile) device time by
+              kernel over a 4-step sketch-guided request, a 5-step batch-8
+              injection request and one step of each trainer, from
+              torch.profiler.
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -58,7 +73,10 @@ when any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -88,6 +106,20 @@ GN_UNET, GN_VAE_ENC, GN_VAE_DEC = 61, 22, 30
 # plain path); the CLIP part of sketch_attn's keys is 257 tokens padded to 384
 INJ_BATCH, INJ_STEPS, INJ_FLASH_SITES, CLIP_PAD = 8, 25, 30, 384
 VIT_LAYERS, VIT_HEADS, VIT_TOKENS, VIT_D = 24, 16, 257, 64
+# the trainers (train.yaml): batch 4 at 512^2, four steps a phase (one
+# warm-up, three counted); 225 token ids a caption, encoded in three windows
+# of 77, so the text context has 231 tokens and every cross-attention at
+# 64^2, 32^2 and 16^2 passes the flash gate (>= 128 keys)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CTX, TRAIN_IDS = 4, 4, 231, 225
+# flash launches of one LGP step: the UNet forward's 15 attn1 and 15 attn2
+# sites (the 8^2 mid block's take the plain path); no backward
+LGP_FLASH_FWD = 30
+# one injection step: the injected UNet adds 15 sketch_attn sites, the ViT
+# 24 layers; the backward reaches every one but the first TransformerBlock's
+# attn1, which runs before the first injection, on no trainable's output
+INJ_TRAIN_FWD, INJ_TRAIN_BWD = 45 + VIT_LAYERS, 44 + VIT_LAYERS
+# the trainers' gradient through the kernels against the plain routes
+TRAIN_GRAD_COS = 0.99
 REPLACES = {
     "flash_fwd": "sketch2img_tpu/ops/flash_attention.py:211 (_fwd_kernel; _fwd_kernel_t :331)",
     "flash_bwd_dq": "sketch2img_tpu/ops/flash_attention.py:601 (_bwd_dq_kernel; _bwd_dq_kernel_t :421)",
@@ -278,6 +310,13 @@ def flash_cases():
         cases.append(("inject_sketch_attn", 2 * INJ_BATCH, HEADS, n, n + CLIP_PAD,
                       n + VIT_TOKENS, d, False, "heads"))
     cases.append(("vit_sketch", 1, VIT_HEADS, VIT_TOKENS, VIT_TOKENS, None, VIT_D, False, "heads"))
+    for n, d in MAIN_SHAPES:  # the trainers' batch-4 sites, forward and backward
+        cases.append(("train_attn1", TRAIN_BATCH, HEADS, n, n, None, d, True, "heads"))
+        cases.append(("train_cross", TRAIN_BATCH, HEADS, n, TRAIN_CTX, None, d, True, "heads"))
+        cases.append(("train_sketch_attn", TRAIN_BATCH, HEADS, n, n + CLIP_PAD, n + VIT_TOKENS, d,
+                      True, "heads"))
+    cases.append(("train_vit", TRAIN_BATCH, VIT_HEADS, VIT_TOKENS, VIT_TOKENS, None, VIT_D, True,
+                  "heads"))
     cases.append(("vit_safety", INJ_BATCH, VIT_HEADS, VIT_TOKENS, VIT_TOKENS, None, VIT_D,
                   False, "heads"))
     for d in BUCKET_DIMS:
@@ -459,7 +498,7 @@ def split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl, variant: int = 0)
 
 
 def record_gn_calls(stack, gn, torch) -> tuple:
-    """One pass of each model of the two paths with a recorder on the
+    """One pass of each model of the four paths with a recorder on the
     GroupNorm op -> ({pass: [((B, C, H, W), eps, silu), ...]}, {tag: real
     input}). The real inputs: a 64^2 norm1 of the UNet's up path (C=960) at
     t=500, and the VAE decoder's conv_norm_out input at 512^2."""
@@ -482,7 +521,10 @@ def record_gn_calls(stack, gn, torch) -> tuple:
         "unet_b1": lambda: unet(1),                      # sketch-guided, guided steps
         "unet_b2": lambda: unet(2),                      # sketch-guided, plain steps
         "unet_inj_b16": lambda: unet(2 * INJ_BATCH, True),  # injection path
+        "unet_b4": lambda: unet(TRAIN_BATCH),            # LGP trainer
+        "unet_inj_b4": lambda: unet(TRAIN_BATCH, True),  # injection trainer
         "vae_enc_b1": lambda: comps.vae.encode(randn(1, 3, 512, 512)),
+        "vae_enc_b4": lambda: comps.vae.encode(randn(TRAIN_BATCH, 3, 512, 512)),  # trainers
         "vae_dec_b1": lambda: comps.vae.decode(randn(1, 4, 64, 64)),
         "vae_dec_b8": lambda: comps.vae.decode(randn(INJ_BATCH, 4, 64, 64)),
     }
@@ -508,7 +550,8 @@ def record_gn_calls(stack, gn, torch) -> tuple:
     finally:
         gn._forward = real
     want = {"unet_b1": GN_UNET, "unet_b2": GN_UNET, "unet_inj_b16": GN_UNET,
-            "vae_enc_b1": GN_VAE_ENC, "vae_dec_b1": GN_VAE_DEC, "vae_dec_b8": GN_VAE_DEC}
+            "unet_b4": GN_UNET, "unet_inj_b4": GN_UNET, "vae_enc_b1": GN_VAE_ENC,
+            "vae_enc_b4": GN_VAE_ENC, "vae_dec_b1": GN_VAE_DEC, "vae_dec_b8": GN_VAE_DEC}
     got = {k: len(v) for k, v in per_pass.items()}
     log(f"  GroupNorm calls per pass {got} expected {want}")
     if got != want:
@@ -684,7 +727,7 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,e2e,inject")
+    ap.add_argument("--phases", default="build,kernels,e2e,inject,train_lgp,train_inject")
     ap.add_argument("--steps", type=int, default=50, help="sampling steps of the e2e request")
     ap.add_argument("--ptxas", action="store_true", help="print ptxas register/smem use")
     args = ap.parse_args(argv)
@@ -742,6 +785,14 @@ def main(argv=None) -> int:
             t0 = time.time()
             launches["inject"] = run_inject(stack, fa, gn, torch)
             log(f"phase inject: ok, {time.time() - t0:.2f} s")
+        if "train_lgp" in phases:
+            t0 = time.time()
+            launches["train_lgp"] = run_train_lgp(stack, fa, gn, torch)
+            log(f"phase train_lgp: ok, {time.time() - t0:.2f} s")
+        if "train_inject" in phases:
+            t0 = time.time()
+            launches["train_inject"] = run_train_inject(stack, fa, gn, torch)
+            log(f"phase train_inject: ok, {time.time() - t0:.2f} s")
         if "profile" in phases:
             t0 = time.time()
             run_profile(stack, torch)
@@ -823,7 +874,7 @@ class Stack:
 
     def __init__(self, torch):
         self.torch = torch
-        self._comps = self._inject = self._gn_calls = None
+        self._comps = self._inject = self._gn_calls = self._gan = self._images = None
 
     @property
     def comps(self):
@@ -863,6 +914,61 @@ class Stack:
                 f"blocks {sum(q.numel() for q in p.unet.sat.parameters())} params): "
                 f"{time.perf_counter() - t0:.2f} s")
         return self._inject
+
+
+    @property
+    def gan(self):
+        """The anime2sketch generator at its published width (8 downs, ngf
+        64), seeded random weights, fp32, frozen."""
+        if self._gan is None:
+            from sketch2img_torch.models.anime2sketch import create_anime2sketch
+
+            torch = self.torch
+            with torch.random.fork_rng(devices=[torch.cuda.current_device()]), \
+                    torch.device("cuda"):
+                torch.manual_seed(5)
+                self._gan = create_anime2sketch().eval().requires_grad_(False)
+            log(f"  anime2sketch (8 downs, ngf 64, fp32): "
+                f"{sum(p.numel() for p in self._gan.parameters())} params")
+        return self._gan
+
+    def vit(self, seed: int = 6):
+        """A fresh ViT-L/14 (fp32) for the injection trainer."""
+        from sketch2img_torch.models.clip_vision import VIT_L14_CONFIG, CLIPVisionEncoder
+
+        torch = self.torch
+        with torch.random.fork_rng(devices=[torch.cuda.current_device()]), torch.device("cuda"):
+            torch.manual_seed(seed)
+            return CLIPVisionEncoder(VIT_L14_CONFIG)
+
+    @property
+    def images(self) -> str:
+        """A folder of 16 seeded synthetic PNG images (smooth colour fields
+        with strokes, 520-672 px on a side) with ``.txt`` captions, made once
+        under build/chip_smoke/ (the trainers' dataset: one epoch is the
+        ``TRAIN_STEPS`` steps of a phase)."""
+        if self._images is None:
+            import numpy as np
+            from PIL import Image
+
+            folder = os.path.join(SMOKE_DIR, "images")
+            os.makedirs(folder, exist_ok=True)
+            rng = np.random.RandomState(1138)
+            for i in range(TRAIN_BATCH * TRAIN_STEPS):
+                h, w = 520 + 8 * i, 672 - 6 * i
+                coarse = rng.rand(h // 64 + 2, w // 64 + 2, 3)
+                img = np.kron(coarse, np.ones((64, 64, 1)))[:h, :w]
+                for _ in range(12):  # dark strokes for the generator to find
+                    r0, c0 = rng.randint(0, h - 40), rng.randint(0, w - 200)
+                    img[r0:r0 + 4, c0:c0 + 200] = 0.05
+                Image.fromarray((img * 255).astype(np.uint8)).save(f"{folder}/im{i:02d}.png")
+                with open(f"{folder}/im{i:02d}.txt", "w") as f:
+                    f.write(f"1girl, solo, sketch, lineart, flower_{i}, sky, tree_{i % 3}")
+            self._images = folder
+        return self._images
+
+
+SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
 def sketch_image(np):
@@ -905,12 +1011,32 @@ def compare_guided(comps, torch, x, t, ctx, target, label, plain_route):
         raise PhaseError(f"kernels disagree with the {label} in the guided pass")
 
 
-def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
-    import contextlib
+@contextlib.contextmanager
+def plain_attention_route():
+    """Every attention site on the plain path while in force."""
+    from sketch2img_torch.ops.attention import set_default_attention_backend
 
+    set_default_attention_backend("plain")
+    try:
+        yield
+    finally:
+        set_default_attention_backend("auto")
+
+
+@contextlib.contextmanager
+def plain_groupnorm_route(gn):
+    """Every GroupNorm through the plain version while in force (flash kept)."""
+    real = gn._forward
+    gn._forward = gn.group_norm_silu_plain
+    try:
+        yield
+    finally:
+        gn._forward = real
+
+
+def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
     import numpy as np
 
-    from sketch2img_torch.ops.attention import set_default_attention_backend
     from sketch2img_torch.pipelines.sketch_guided import num_guided_steps
     from sketch2img_torch.runtime import SketchGuidedPipeline
 
@@ -918,31 +1044,15 @@ def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
     pipe = SketchGuidedPipeline(comps)
     sketch = sketch_image(np)
 
-    @contextlib.contextmanager
-    def plain_attention():
-        set_default_attention_backend("plain")
-        try:
-            yield
-        finally:
-            set_default_attention_backend("auto")
-
-    @contextlib.contextmanager
-    def plain_groupnorm():  # every GroupNorm through the plain version, flash kept
-        real = gn._forward
-        gn._forward = gn.group_norm_silu_plain
-        try:
-            yield
-        finally:
-            gn._forward = real
-
     # the kernels against the plain paths inside one guided UNet pass
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(1, 4, 64, 64, generator=gen, device="cuda")
     target = torch.randn(1, 4, 64, 64, generator=gen, device="cuda") * 0.2
     t = torch.full((1,), 801, dtype=torch.long, device="cuda")
     _, ctx = pipe.encode_prompt("a house")
-    compare_guided(comps, torch, x, t, ctx, target, "plain attention path", plain_attention)
-    compare_guided(comps, torch, x, t, ctx, target, "plain GroupNorm path", plain_groupnorm)
+    compare_guided(comps, torch, x, t, ctx, target, "plain attention path", plain_attention_route)
+    compare_guided(comps, torch, x, t, ctx, target, "plain GroupNorm path",
+                   functools.partial(plain_groupnorm_route, gn))
 
     def run(n_steps, count, per_step=True):
         marks = []
@@ -1068,10 +1178,221 @@ def run_inject(stack, fa, gn, torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the trainers
+# ---------------------------------------------------------------------------
+
+
+def train_config(stack, name: str) -> dict:
+    """train.yaml's schema for a smoke run of one trainer: batch 4 at 512^2
+    over the synthetic folder, AdamW at 2e-4, one epoch, its checkpoints
+    and exports in a fresh build/chip_smoke/<name>/."""
+    import shutil
+
+    folder = os.path.join(SMOKE_DIR, name)
+    shutil.rmtree(folder, ignore_errors=True)
+    return {"name": name, "train_epochs": 1, "batch_size": TRAIN_BATCH, "resolution": 512,
+            "seed": 1138,
+            "dataset": {"img_path": [stack.images], "center_crop": False, "max_length": TRAIN_IDS,
+                        "ucg": 0.0, "process_tags": True, "cache_latents": False},
+            "optimizer": {"name": "adamw", "params": {"lr": 2e-4, "weight_decay": 1e-2,
+                                                      "eps": 1e-8}},
+            "checkpoint_dir": os.path.join(folder, "checkpoints"),
+            "output_dir": os.path.join(folder, "out"), "checkpoint_every": 500, "log_every": 1}
+
+
+def snapshot(modules) -> list:
+    """Copies of every parameter and buffer of ``modules``."""
+    return [t.detach().clone() for m in modules for t in m.state_dict().values()]
+
+
+def check_frozen(modules, before, what: str) -> None:
+    after = [t for m in modules for t in m.state_dict().values()]
+    same = len(after) == len(before) and all(a.equal(b) for a, b in zip(after, before))
+    log(f"  {what}: {len(before)} frozen tensors bit-identical after training: {same}")
+    if not same:
+        raise PhaseError(f"{what}: a frozen tensor changed")
+
+
+def check_moved(named_before: dict, named_after: dict, what: str) -> None:
+    still = [n for n, t in named_after.items() if t.equal(named_before[n])]
+    log(f"  {what}: {len(named_after) - len(still)} of {len(named_after)} trainable tensors moved")
+    if still or set(named_before) != set(named_after):
+        raise PhaseError(f"{what}: tensors did not move: {still[:5]}")
+
+
+def report_training(torch, what: str, result, launches: dict, expected: dict,
+                    resident: int) -> None:
+    """Losses finite, per-step times (the first step is the warm-up),
+    images/s and the trainer's own peak memory (the peak less the
+    ``resident`` bytes allocated before the call: models of earlier
+    phases); launch counts against ``expected``."""
+    import numpy as np
+
+    losses, secs = result.losses, result.step_seconds
+    counted = secs[1:]
+    med = float(np.median(counted))
+    log(f"  {what} losses {[round(x, 6) for x in losses]}; s/step (3 counted, after a"
+        f" {secs[0]:.3f} s warm-up) median {med:.4f} min {min(counted):.4f} max"
+        f" {max(counted):.4f}; images/s {TRAIN_BATCH / med:.2f}; peak memory of the trainer"
+        f" {(torch.cuda.max_memory_allocated() - resident) / 2**30:.2f} GiB (above"
+        f" {resident / 2**30:.2f} GiB resident before it); on {card_line()}")
+    log(f"  launches {launches} expected {expected}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise PhaseError(f"{what}: {len(losses)} steps, losses {losses}")
+    if launches != expected:
+        raise PhaseError(f"{what}: launch counts {launches} != expected {expected}")
+
+
+def run_train_lgp(stack, fa, gn, torch) -> dict:
+    """The LGP trainer for four steps through ``train_lgp``, from LGP
+    weights saved here (so that every LGP tensor can be held to its start);
+    then the last checkpoint restored and held to the trained state."""
+    from sketch2img_torch.apps.train_lgp import train_lgp
+    from sketch2img_torch.models.lgp import LatentEdgePredictor
+    from sketch2img_torch.models.unet import tap_channels
+    from sketch2img_torch.train.checkpoint import restore_train_state
+
+    comps, gan = stack.comps, stack.gan
+    cfg = train_config(stack, "train_lgp")
+    frozen = [comps.unet, comps.vae, comps.text_encoder, gan]
+    before = snapshot(frozen)
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]), torch.device("cuda"):
+        torch.manual_seed(7)
+        lgp0 = LatentEdgePredictor(input_dim=tap_channels(comps.unet.config) + 4 + 36)
+    start = {n: t.detach().clone() for n, t in lgp0.state_dict().items()}
+    weights = os.path.join(SMOKE_DIR, "train_lgp", "lgp0.pt")
+    os.makedirs(os.path.dirname(weights), exist_ok=True)
+    torch.save(lgp0.state_dict(), weights)
+    del lgp0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_counts(fa, gn)
+    result = train_lgp(cfg, comps, gan, max_steps=TRAIN_STEPS, network_weights=weights,
+                       sketch_fixed_size=1024, device="cuda", log=lambda m: log("  " + m))
+    torch.cuda.synchronize()
+    launches = counts(fa, gn)  # the counted run: the trainer's four steps
+    check_no_copies(fa, "LGP trainer")
+    per_pass, _ = stack.gn_calls(gn, torch)
+    expected = {"flash_fwd": LGP_FLASH_FWD * TRAIN_STEPS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                **gn_launches(gn, [(per_pass["unet_b4"], TRAIN_STEPS),
+                                   (per_pass["vae_enc_b4"], 2 * TRAIN_STEPS)])}
+    report_training(torch, "LGP trainer (SD1.5 512^2 B=4, sketches at 1024^2, uncached)",
+                    result, launches, expected, resident)
+    lgp, opt = result.modules["lgp"], result.modules["optimizer"]
+    check_moved(start, lgp.state_dict(), "LGP (parameters and BatchNorm buffers)")
+    check_frozen(frozen, before, "UNet, VAE, text encoder, anime2sketch")
+    saved = restore_train_state(result.checkpoint, map_location="cuda")
+    same = (saved["step"] == TRAIN_STEPS
+            and all(saved["lgp"][n].equal(t) for n, t in lgp.state_dict().items())
+            and same_state(torch, saved["optimizer"], opt.state_dict()))
+    log(f"  checkpoint {os.path.basename(result.checkpoint)} restored equal to the trained"
+        f" state (step, LGP, optimizer): {same}; exports"
+        f" {[os.path.basename(e) for e in result.exports]}")
+    if not same:
+        raise PhaseError("the LGP checkpoint does not restore the trained state")
+    if [os.path.basename(e) for e in result.exports] != ["edge_predictor.pt"]:
+        raise PhaseError(f"the LGP trainer's one epoch exported {result.exports}")
+    return launches
+
+
+def same_state(torch, a, b) -> bool:
+    """Nested dicts/lists of tensors and numbers, equal leaf for leaf."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_state(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_state(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.cpu().equal(b.cpu())
+    return a == b
+
+
+def run_train_inject(stack, fa, gn, torch) -> dict:
+    """The injection trainer for four steps through ``train_attn_inject``
+    (fresh injection blocks and a fresh ViT-L/14), then one step's gradient
+    through the kernels against the plain routes."""
+    from sketch2img_torch.apps.train_attn_inject import injected_unet, train_attn_inject
+
+    comps, gan = stack.comps, stack.gan
+    cfg = train_config(stack, "train_inject")
+    frozen = [comps.unet, comps.vae, comps.text_encoder, gan]
+    before = snapshot(frozen)
+    clip = stack.vit()
+    start = {"clip." + n: t.detach().clone() for n, t in clip.state_dict().items()
+             if not n.startswith("vision_model.post_layernorm.")}
+    sat0 = injected_unet(comps, clip.config.hidden_size, cfg["seed"]).sat  # what the trainer draws
+    start.update({"sat." + n: t.detach().clone() for n, t in sat0.state_dict().items()})
+    del sat0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_counts(fa, gn)
+    result = train_attn_inject(cfg, comps, gan, clip, max_steps=TRAIN_STEPS, sketch_fixed_size=512,
+                               device="cuda", log=lambda m: log("  " + m))
+    torch.cuda.synchronize()
+    launches = counts(fa, gn)  # the counted run: the trainer's four steps
+    check_no_copies(fa, "injection trainer")
+    per_pass, _ = stack.gn_calls(gn, torch)
+    expected = {"flash_fwd": INJ_TRAIN_FWD * TRAIN_STEPS,
+                "flash_bwd_dq": INJ_TRAIN_BWD * TRAIN_STEPS,
+                "flash_bwd_dkv": INJ_TRAIN_BWD * TRAIN_STEPS,
+                **gn_launches(gn, [(per_pass["unet_inj_b4"], TRAIN_STEPS),
+                                   (per_pass["vae_enc_b4"], TRAIN_STEPS)])}
+    report_training(torch, "injection trainer (SD1.5 512^2 B=4, ViT-L/14 and injection blocks"
+                    " trained, sketches at 512^2)", result, launches, expected, resident)
+    unet, clip = result.modules["unet"], result.modules["clip"]
+    after = {"clip." + n: t for n, t in clip.state_dict().items()
+             if not n.startswith("vision_model.post_layernorm.")}
+    after.update({"sat." + n: t for n, t in unet.sat.state_dict().items()})
+    check_moved(start, after, "injection blocks and ViT-L/14")
+    check_frozen(frozen, before, "base UNet, VAE, text encoder, anime2sketch")
+    del before, start, after
+    inject_grad_check(stack, gn, torch, unet, clip)
+    return launches
+
+
+def inject_grad_check(stack, gn, torch, unet, clip, batch: int = 2) -> None:
+    """One step's gradient of the injection loss w.r.t. every trainable,
+    through the kernels and through the plain attention and GroupNorm routes
+    on the same inputs (``batch`` images: the plain attention keeps its
+    (B, 8, 4096, 4480) weights for the backward), held by their cosine."""
+    from sketch2img_torch.train.train_attn_inject import inject_inputs, inject_loss
+    from sketch2img_torch.train.train_lgp import Frozen
+
+    comps = stack.comps
+    frozen = Frozen(None, comps.vae, comps.text_encoder, stack.gan, comps.schedule)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    data = {"input_ids": torch.randint(0, 49406, (batch, TRAIN_IDS), generator=gen, device="cuda"),
+            "pixels": torch.rand(batch, 3, 512, 512, generator=gen, device="cuda") * 2 - 1}
+    inputs = inject_inputs(frozen, data, generator=gen)
+    params = [p for p in list(unet.sat.parameters()) + list(clip.parameters()) if p.requires_grad]
+
+    def grads():
+        loss = inject_loss(unet, clip, *inputs)
+        flat = torch.cat([g.flatten().float() for g in torch.autograd.grad(loss, params)])
+        return float(loss.detach()), flat
+
+    loss_k, g_k = grads()
+    with plain_attention_route(), plain_groupnorm_route(gn):
+        loss_p, g_p = grads()
+    cos = float(torch.nn.functional.cosine_similarity(g_k, g_p, dim=0))
+    rel = float((g_k - g_p).norm() / g_p.norm())
+    ok = cos >= TRAIN_GRAD_COS and abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+    log(f"  injection step at B={batch}, kernels vs plain attention and GroupNorm: loss"
+        f" {loss_k:.6f} vs {loss_p:.6f}, gradient cosine over {g_k.numel()} trainable values"
+        f" {cos:.5f} (tol {TRAIN_GRAD_COS}), relative L2 difference {rel:.3e} ok={ok}")
+    if not ok:
+        raise PhaseError("the injection step's gradient through the kernels disagrees with the "
+                         "plain routes")
+
+
 def run_profile(stack, torch, steps: int = 4, inject_steps: int = 5) -> None:
-    """Device time by kernel over one short request of each path
-    (torch.profiler): the device's busy share of the wall time, and the
-    shares of the flash kernels, the GroupNorm kernel and copies/casts."""
+    """Device time by kernel over one short request of each path and one
+    step of each trainer (torch.profiler): the device's busy share of the
+    wall time, and the shares of the flash kernels, the GroupNorm kernel
+    and copies/casts."""
     import numpy as np
 
     from sketch2img_torch.runtime import SketchGuidedPipeline
@@ -1087,6 +1408,38 @@ def run_profile(stack, torch, steps: int = 4, inject_steps: int = 5) -> None:
         [f"a sketch of a house, take {i}" for i in range(INJ_BATCH)],
         num_inference_steps=inject_steps, width=512, height=512, strength=0.5, spimg=sketch,
         seed=1234))
+    profile_train_steps(stack, torch)
+
+
+def profile_train_steps(stack, torch) -> None:
+    """One step of each trainer at B=4, 512^2 (the library step functions
+    on modules made as the apps make them, a random batch), profiled after
+    one unprofiled step."""
+    from sketch2img_torch.apps.train_attn_inject import injected_unet
+    from sketch2img_torch.models.lgp import LatentEdgePredictor
+    from sketch2img_torch.models.unet import tap_channels
+    from sketch2img_torch.train.optim import make_optimizer
+    from sketch2img_torch.train.train_attn_inject import inject_train_step, mark_trainables
+    from sketch2img_torch.train.train_lgp import Frozen, lgp_train_step
+
+    comps, gan = stack.comps, stack.gan
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    batch = {"input_ids": torch.randint(0, 49406, (TRAIN_BATCH, TRAIN_IDS), generator=gen,
+                                        device="cuda"),
+             "pixels": torch.rand(TRAIN_BATCH, 3, 512, 512, generator=gen, device="cuda") * 2 - 1}
+    frozen = Frozen(comps.unet, comps.vae, comps.text_encoder, gan, comps.schedule)
+    with torch.device("cuda"):
+        lgp = LatentEdgePredictor(input_dim=tap_channels(comps.unet.config) + 4 + 36)
+    opt = make_optimizer("adamw", lgp.parameters(), 2e-4)
+    profile_request(torch, f"LGP train step, B={TRAIN_BATCH} (sketches at 1024^2)", lambda: float(
+        lgp_train_step(lgp, opt, frozen, batch, generator=gen, sketch_fixed_size=1024)))
+    del lgp, opt
+    clip = stack.vit()
+    unet = injected_unet(comps, clip.config.hidden_size, 0)
+    opt = make_optimizer("adamw", mark_trainables(unet, clip).values(), 2e-4)
+    profile_request(torch, f"injection train step, B={TRAIN_BATCH} (sketches at 512^2)",
+                    lambda: float(inject_train_step(unet, clip, opt, frozen, batch, generator=gen,
+                                                    sketch_fixed_size=512)))
 
 
 def profile_request(torch, label: str, request) -> None:
@@ -1103,8 +1456,8 @@ def profile_request(torch, label: str, request) -> None:
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
-    for e in prof.events():  # device-side kernel events only (ops would count twice)
-        if e.device_type == DeviceType.CUDA:
+    for e in prof.events():  # device-side kernels only (ops and annotated ranges would count twice)
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     rows = sorted(((us, n, name) for name, (us, n) in by_name.items()), reverse=True)

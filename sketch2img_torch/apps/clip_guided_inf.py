@@ -21,7 +21,8 @@ import torch
 
 from sketch2img_torch.core.convert import clip_vision_from_jax, injection_from_jax, load_params_npz
 from sketch2img_torch.models.clip_vision import VIT_L14_CONFIG, CLIPVisionConfig, CLIPVisionEncoder
-from sketch2img_torch.models.safety_checker import clip_normalize, resize_bicubic
+from sketch2img_torch.models.safety_checker import clip_normalize
+from sketch2img_torch.ops.resize import resize_bicubic
 from sketch2img_torch.models.unet import UNet2DCondition, UNetConfig, make_sat
 from sketch2img_torch.pipelines.attn_injected import cfg_injection_state, sample_attn_injected
 from sketch2img_torch.pipelines.text2img import latents_to_image

@@ -1,0 +1,143 @@
+"""LGP training — counterpart of ``sketch2img_tpu/apps/train_lgp.py``.
+
+``train_lgp(config, components, gan)`` trains a fresh Latent Edge Predictor
+against the frozen SD stack in ``components`` and the anime2sketch
+``gan``: ``train.yaml``'s schema, aspect-ratio buckets (``arb``) or the
+plain loader, the optional latent cache (``dataset.cache_latents``:
+pixels' and sketches' VAE moments once per image, not under ARB),
+constant LR after 150 warm-up steps, ``checkpoint_every``, resume, the
+``sampling:`` block, checkpoint-on-signal, and ``edge_predictor.pt`` in
+``output_dir`` at each epoch's end. ``main()`` is the command line: it
+loads the SD1.x directory of ``model_path`` and ``netG.pth`` and calls it.
+
+wandb logging and the hub push need the network and are not ported; a
+config that asks for them raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional, Union
+
+import torch
+
+from sketch2img_torch.core.config import load_config
+from sketch2img_torch.core.export import lgp_state, save_torch_state
+from sketch2img_torch.models.anime2sketch import load_netg
+from sketch2img_torch.models.lgp import LatentEdgePredictor
+from sketch2img_torch.models.unet import tap_channels
+from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline
+from sketch2img_torch.train import loop
+from sketch2img_torch.train.optim import make_lr_schedule, make_optimizer
+from sketch2img_torch.train.sampling import TrainingSampler
+from sketch2img_torch.train.train_lgp import Frozen, generate_sketch, lgp_train_step
+
+
+def train_lgp(config, components, gan, *, resume: Optional[str] = None,
+              max_steps: Optional[int] = None, network_weights: Optional[str] = None,
+              sketch_fixed_size: int = 1024, device: Union[str, torch.device] = "cuda",
+              log=print) -> loop.TrainResult:
+    """Train an LGP (seeded from ``config.seed``, or ``network_weights``, an
+    ``edge_predictor.pt``) for ``train_epochs`` epochs or ``max_steps``
+    steps; the generator sees the images at ``sketch_fixed_size``^2.
+    ``components``: ``runtime.SDComponents`` with a tokenizer, on
+    ``device``; ``gan``: the anime2sketch generator there. ``resume``: a
+    checkpoint file or directory. -> ``TrainResult``; the LGP's weights are
+    in the last checkpoint and in ``output_dir/edge_predictor.pt``."""
+    cfg = loop.as_config(config)
+    loop.refuse_network_options(cfg)
+    c = components
+    dev = loop.components_device(c, device)
+    data = loop.Data(cfg, c.tokenizer)
+    devices = [dev] if dev.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices), torch.device(dev):
+        torch.manual_seed(cfg.seed)
+        lgp = LatentEdgePredictor(input_dim=tap_channels(c.unet.config) + 4 + 36)
+    if network_weights:
+        lgp.load_state_dict(torch.load(network_weights, map_location=dev, weights_only=True),
+                            strict=True)
+    frozen = Frozen(c.unet, c.vae, c.text_encoder, gan, c.schedule)
+
+    max_train_steps = cfg.train_epochs * len(data)
+    lr = make_lr_schedule("constant_with_warmup", cfg.optimizer.params["lr"], loop.WARMUP_STEPS,
+                          max_train_steps)
+    opt_params = {k: v for k, v in cfg.optimizer.params.items() if k != "lr"}
+    optimizer = make_optimizer(cfg.optimizer.name, lgp.parameters(), lr, **opt_params)
+    generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+
+    cache = bool(cfg.get_path("dataset.cache_latents", False)) and not data.arb
+    if cache:
+        log(f"caching latents for {len(data.dataset)} images ...")
+        def sketch_moments(px):
+            return torch.cat(c.vae.encode(generate_sketch(gan, px, sketch_fixed_size)), dim=1)
+
+        data.dataset.cache_latents(
+            loop.numpy_nchw_fn(lambda px: torch.cat(c.vae.encode(px), dim=1), dev),
+            loop.numpy_nchw_fn(sketch_moments, dev))
+
+    sampler = TrainingSampler(cfg.get_path("sampling", {}), c.unet, c.vae,
+                              SketchGuidedPipeline(c).encode_prompt, c.schedule)
+    out_dir = cfg.get_path("output_dir", ".")
+
+    def step(batch):
+        return lgp_train_step(lgp, optimizer, frozen, batch, cached_latents=cache,
+                              generator=generator, sketch_fixed_size=sketch_fixed_size)
+
+    def state(global_step):
+        return {"step": global_step, "lgp": lgp.state_dict(), "optimizer": optimizer.state_dict(),
+                "generator": generator.get_state()}
+
+    def load_state(st):
+        lgp.load_state_dict(st["lgp"], strict=True)
+        optimizer.load_state_dict(st["optimizer"])
+        generator.set_state(st["generator"])
+        return int(st["step"])
+
+    def on_step(global_step):
+        if sampler.should_sample(step=global_step):
+            sampler(f"step{global_step}")
+
+    def on_epoch(epoch):
+        if sampler.should_sample(epoch=epoch):
+            sampler(f"epoch{epoch + 1}")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, "edge_predictor.pt")
+        save_torch_state(path, lgp_state(lgp))
+        return [path]
+
+    result = loop.run(cfg, data, step=step, state=state, load_state=load_state, device=dev,
+                      ckpt_dir=cfg.get_path("checkpoint_dir", "checkpoints/lgp"), resume=resume,
+                      max_steps=max_steps, max_train_steps=max_train_steps, on_step=on_step,
+                      on_epoch=on_epoch, log=log)
+    result.modules.update(lgp=lgp, optimizer=optimizer)
+    return result
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="Train the Latent Edge Predictor.")
+    ap.add_argument("--config", type=str, default="train.yaml")
+    ap.add_argument("--network_weights", type=str, default=None,
+                    help="start from these LGP weights (edge_predictor.pt)")
+    ap.add_argument("--resume", type=str, default=None,
+                    help="checkpoint file or directory to resume from")
+    ap.add_argument("--netg", type=str, default="weights/netG.pth",
+                    help="anime2sketch generator weights")
+    ap.add_argument("--save_torch", action="store_true",
+                    help="accepted for the JAX app's command line; edge_predictor.pt is "
+                         "always written")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    config = load_config(args.config)
+    loop.refuse_network_options(config)
+    components = SDComponents.from_diffusers_dir(config.model_path)
+    gan = load_netg(args.netg)
+    train_lgp(config, components, gan, resume=args.resume, network_weights=args.network_weights)
+    print("done")
+
+
+if __name__ == "__main__":
+    main()

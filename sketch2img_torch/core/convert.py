@@ -8,7 +8,8 @@ These invert the JAX package's torch -> Flax converters
 ``models/lgp.py::convert_torch_lgp``,
 ``models/clip_vision.py::convert_torch_clip_vision``,
 ``models/safety_checker.py::convert_torch_safety_checker``,
-``core/export.py::convert_torch_sat``):
+``core/export.py::convert_torch_sat``,
+``models/anime2sketch.py::convert_torch_anime2sketch``):
 
   conv   flax (kh, kw, I, O) -> torch (O, I, kh, kw)
   dense  flax (I, O)         -> torch (O, I)
@@ -265,4 +266,23 @@ def safety_checker_from_jax(p: Any, num_layers: int = 24) -> StateDict:
     sd["concept_embeds_weights"] = _t(p.concept_thresholds)
     sd["special_care_embeds"] = _t(p.special_care_embeds)
     sd["special_care_embeds_weights"] = _t(p.special_care_thresholds)
+    return sd
+
+
+def anime2sketch_from_jax(params: Mapping, num_downs: int = 8) -> StateDict:
+    """JAX ``UnetGenerator`` params -> port ``UnetGenerator`` state dict (the
+    ``netG.pth`` layout). Inverts ``convert_torch_anime2sketch``: the
+    Sequential index of each level's down and up conv is 0 and 3 at the
+    outermost level, 1 and 3 at the innermost, 1 and 5 between, and the
+    submodule sits at 1 (outermost) or 3; both conv kernels go
+    (kh, kw, a, b) -> (b, a, kh, kw)."""
+    sd: StateDict = {}
+    node, prefix = params["model"], "model.model"
+    for level in range(num_downs):
+        innermost = level == num_downs - 1
+        down_i, up_i, sub_i = (0, 3, 1) if level == 0 else (1, 3, None) if innermost else (1, 5, 3)
+        _conv(sd, f"{prefix}.{down_i}", node["downconv"])
+        _conv(sd, f"{prefix}.{up_i}", node["upconv"])
+        if sub_i is not None:
+            node, prefix = node["submodule"], f"{prefix}.{sub_i}.model"
     return sd

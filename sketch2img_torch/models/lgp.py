@@ -5,7 +5,9 @@ between layers) over the concatenated UNet taps, the noise-level map and a
 9-octave sinusoidal encoding of it. ``layers`` is the ``nn.Sequential`` of
 the published ``edge_predictor.pt`` (Linear at 0, 3, 6, 9, 12; BatchNorm1d
 at 2, 5, 8, 11), so that file loads with ``load_state_dict(strict=True)``.
-BatchNorm runs on its running statistics (eval mode). The LGP stays fp32.
+In eval mode BatchNorm runs on its running statistics; in train mode (the
+LGP trainer) it normalises with the batch statistics and updates the
+running ones as flax does (``BatchNorm``). The LGP stays fp32.
 """
 
 from __future__ import annotations
@@ -25,6 +27,28 @@ def _pos_encoding(t: torch.Tensor, num_layers: int) -> torch.Tensor:
                      dim=1)
 
 
+class BatchNorm(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` whose train mode follows flax's ``BatchNorm`` (the
+    JAX package's LGP, ``sketch2img_tpu/models/lgp.py``): normalise with the
+    biased batch variance and feed that same biased variance into
+    ``running_var`` (``nn.BatchNorm1d`` feeds the unbiased one), momentum
+    0.1 here = 0.9 there. Statistics in fp32, in two passes (flax takes
+    E[x^2] - E[x]^2; the two agree to fp32 rounding). Eval mode and the
+    state dict are ``nn.BatchNorm1d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=0, correction=0)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
+
+
 class LatentEdgePredictor(nn.Module):
     def __init__(self, input_dim: int = 9320, output_dim: int = 4, num_layers: int = 9):
         super().__init__()
@@ -32,7 +56,7 @@ class LatentEdgePredictor(nn.Module):
         mods = []
         width_in = input_dim
         for w in _WIDTHS:
-            mods += [nn.Linear(width_in, w), nn.ReLU(), nn.BatchNorm1d(w)]
+            mods += [nn.Linear(width_in, w), nn.ReLU(), BatchNorm(w)]
             width_in = w
         mods.append(nn.Linear(width_in, output_dim))
         self.layers = nn.Sequential(*mods)

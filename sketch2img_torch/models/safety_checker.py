@@ -30,18 +30,10 @@ from sketch2img_torch.models.clip_vision import (
     CLIPVisionConfig,
     CLIPVisionEncoder,
 )
+from sketch2img_torch.ops.resize import resize_bicubic
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
-
-
-def resize_bicubic(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, height, width), Keys cubic with a = -0.5 and a
-    kernel widened by the scale when shrinking: ``jax.image.resize(...,
-    "bicubic")`` (antialiased by default). PyTorch's antialiased bicubic is
-    that filter; its plain bicubic (a = -0.75, no antialias) is not."""
-    return F.interpolate(x, size=(height, width), mode="bicubic", antialias=True,
-                         align_corners=False)
 
 
 def clip_normalize(pixels01: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,7 @@ The port and ``chip_smoke.py`` import neither ``jax`` nor ``sketch2img_tpu``
 the entry points run on the CPU only when asked to.
 """
 
+import json
 import os
 import shutil
 import subprocess
@@ -16,7 +17,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import sketch2img_torch
 names = [m.name for m in pkgutil.walk_packages(sketch2img_torch.__path__, "sketch2img_torch.")]
 for n in names:
@@ -24,8 +25,20 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "sketch2img_tpu")))
-print(len(names), bad)
+print(json.dumps({"names": names, "bad": bad}))
 """
+
+# every module of the training slice, which the probe must have imported
+TRAINING_MODULES = [
+    "sketch2img_torch.apps.train_attn_inject", "sketch2img_torch.apps.train_lgp",
+    "sketch2img_torch.core.config", "sketch2img_torch.core.export",
+    "sketch2img_torch.data.arb", "sketch2img_torch.data.dataset", "sketch2img_torch.data.loader",
+    "sketch2img_torch.data.tags", "sketch2img_torch.models.anime2sketch",
+    "sketch2img_torch.train", "sketch2img_torch.train.checkpoint", "sketch2img_torch.train.loop",
+    "sketch2img_torch.train.optim", "sketch2img_torch.train.sampling",
+    "sketch2img_torch.train.signals", "sketch2img_torch.train.train_attn_inject",
+    "sketch2img_torch.train.train_lgp",
+]
 
 
 @pytest.fixture(scope="module")
@@ -53,13 +66,18 @@ def subprocesses(tmp_path_factory):
 def test_port_imports_no_jax(subprocesses):
     out = subprocesses["probe"]
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15 and bad == "[]", out.stdout
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(got["names"]) >= 15 and got["bad"] == [], out.stdout
+    missing = sorted(set(TRAINING_MODULES) - set(got["names"]))
+    assert not missing, missing
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the no-GPU refusal cannot be observed here")
+    from sketch2img_torch.apps.train_attn_inject import train_attn_inject
+    from sketch2img_torch.apps.train_lgp import train_lgp
+    from sketch2img_torch.models.anime2sketch import load_netg
     from sketch2img_torch.runtime import SDComponents
     from sketch2img_torch.utils.device import resolve_device
 
@@ -69,6 +87,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         SDComponents.random_init()
     with pytest.raises(RuntimeError, match="cuda"):
         SDComponents.from_diffusers_dir("/nonexistent")
+    for trainer in (train_lgp, train_attn_inject):
+        with pytest.raises(RuntimeError, match="cuda"):
+            trainer({}, None, None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_netg("/nonexistent")
     assert resolve_device("cpu") == torch.device("cpu")
 
 

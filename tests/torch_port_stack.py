@@ -105,12 +105,12 @@ def _merge(base, extra):
     return out
 
 
-def injected_unet_pair(variant, seed=0, context_dim=16):
+def injected_unet_pair(variant, seed=0, context_dim=16, **overrides):
     """The injected UNet: base weights through convert_torch_unet, the
     injection blocks (``unet.sat``, the sketch_attn_model.pt layout) through
     the JAX package's convert_torch_sat."""
     torch.manual_seed(seed)
-    kw = dict(UNET_KW, injection=variant, injection_context_dim=context_dim)
+    kw = dict(UNET_KW, injection=variant, injection_context_dim=context_dim, **overrides)
     port = _perturb(tunet.UNet2DCondition(tunet.UNetConfig(**kw)), seed)
     cfg = junet.UNetConfig(**kw)
     base = {k: v for k, v in port.state_dict().items() if not k.startswith("sat.")}
