@@ -59,7 +59,22 @@ Phases, each printing its own lines:
               steps as above and the same checks, then one step's gradient
               through the kernels against the plain attention and GroupNorm
               routes (cosine over every trainable gradient);
-  7. profile  (only when asked: --phases build,profile) device time by
+  7. serve    the port's HTTP server (``apps/serve.make_server``) in-process
+              on 127.0.0.1, around the sketch-guided pipeline and the
+              injection pipeline over the same components, micro-batching
+              on (batches of 2), warmed at 512^2: a 50-step sketch-guided
+              PNG request in a handler thread (launch counters zeroed just
+              before and read just after; timed against the direct call), a
+              JSON prompt list with per-image seeds, two concurrent requests
+              that merge into one batch-2 call, an SSE stream with previews,
+              an inject request with strength and seed lists, a bad solver
+              (400); every served image against the direct pipeline call
+              with its seed; then a clean shutdown;
+  8. apps     ``app.inference`` (25 steps, a uint8 sketchpad),
+              ``evaluation.evaluate`` (one t=100 pass with taps) and
+              ``pic2sketch`` (the full-width generator at load_size 512), at
+              512^2, each timed with its launch counts;
+  9. profile  (only when asked: --phases build,profile) device time by
               kernel over a 4-step sketch-guided request, a 5-step batch-8
               injection request and one step of each trainer, from
               torch.profiler.
@@ -120,6 +135,15 @@ LGP_FLASH_FWD = 30
 INJ_TRAIN_FWD, INJ_TRAIN_BWD = 45 + VIT_LAYERS, 44 + VIT_LAYERS
 # the trainers' gradient through the kernels against the plain routes
 TRAIN_GRAD_COS = 0.99
+# the server phase: micro-batch window, the steps of its requests other than
+# the 50-step one, the image size of it and the apps phase; a served image
+# against the direct pipeline call making the same call, in uint8 levels:
+# the mean |difference| and the share of pixels more than 16 levels off
+# (each limit or twice the direct call's own spread, whichever is larger)
+SERVE_WINDOW_MS, SERVE_STEPS, SERVE_PX = 200, 10, 512
+SERVE_TOL_MEAN, SERVE_TOL_FAR = 2.0, 0.01
+# the demo's default steps (app.inference)
+APP_STEPS = 25
 REPLACES = {
     "flash_fwd": "sketch2img_tpu/ops/flash_attention.py:211 (_fwd_kernel; _fwd_kernel_t :331)",
     "flash_bwd_dq": "sketch2img_tpu/ops/flash_attention.py:601 (_bwd_dq_kernel; _bwd_dq_kernel_t :421)",
@@ -727,7 +751,8 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,e2e,inject,train_lgp,train_inject")
+    ap.add_argument("--phases",
+                    default="build,kernels,e2e,inject,train_lgp,train_inject,serve,apps")
     ap.add_argument("--steps", type=int, default=50, help="sampling steps of the e2e request")
     ap.add_argument("--ptxas", action="store_true", help="print ptxas register/smem use")
     args = ap.parse_args(argv)
@@ -793,6 +818,14 @@ def main(argv=None) -> int:
             t0 = time.time()
             launches["train_inject"] = run_train_inject(stack, fa, gn, torch)
             log(f"phase train_inject: ok, {time.time() - t0:.2f} s")
+        if "serve" in phases:
+            t0 = time.time()
+            launches["serve"] = run_serve(stack, fa, gn, torch)
+            log(f"phase serve: ok, {time.time() - t0:.2f} s")
+        if "apps" in phases:
+            t0 = time.time()
+            launches.update({f"apps_{k}": v for k, v in run_apps(stack, fa, gn, torch).items()})
+            log(f"phase apps: ok, {time.time() - t0:.2f} s")
         if "profile" in phases:
             t0 = time.time()
             run_profile(stack, torch)
@@ -971,10 +1004,12 @@ class Stack:
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 
 
-def sketch_image(np):
-    sketch = np.zeros((512, 512), np.float32)
-    sketch[100:412, 250:262] = 1.0
-    sketch[250:262, 100:412] = 1.0
+def sketch_image(np, px: int = 512):
+    """A cross of two 12/512-wide strokes on a px^2 pad."""
+    sketch = np.zeros((px, px), np.float32)
+    lo, hi, a, b = (px * v // 512 for v in (100, 412, 250, 262))
+    sketch[lo:hi, a:b] = 1.0
+    sketch[a:b, lo:hi] = 1.0
     return sketch
 
 
@@ -1011,6 +1046,45 @@ def compare_guided(comps, torch, x, t, ctx, target, label, plain_route):
         raise PhaseError(f"kernels disagree with the {label} in the guided pass")
 
 
+def repeatability(comps, torch, x, t, ctx, target, gn) -> None:
+    """The guided pass run twice on the same inputs, through the kernels and
+    through each plain route: whether eps and the gradient come out
+    bit-identical (a measurement: the sketch-guided request's run-to-run
+    spread grows from whatever is not)."""
+    routes = {"kernels": contextlib.nullcontext, "plain attention": plain_attention_route,
+              "plain GroupNorm": functools.partial(plain_groupnorm_route, gn),
+              "plain attention and GroupNorm": lambda: _both_plain(gn)}
+    notes = []
+    for label, route in routes.items():
+        with route():
+            (e1, g1), (e2, g2) = (guided_pass(comps, torch, x, t, ctx, target) for _ in range(2))
+        notes.append(f"{label}: eps {'equal' if e1.equal(e2) else 'differs'}, gradient "
+                     f"{'equal' if g1.equal(g2) else 'differs by %.3e of its max' % float((g1 - g2).abs().max() / g1.abs().max())}")
+    log(f"  guided pass twice on the same inputs: {'; '.join(notes)}")
+    # PyTorch's deterministic mode names the ops without a deterministic
+    # implementation (warn_only) and makes cuDNN pick deterministic algorithms
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            (_, g1), (_, g2) = (guided_pass(comps, torch, x, t, ctx, target) for _ in range(2))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split(" does not have")[0] for w in caught
+                  if "deterministic" in str(w.message)})
+    log(f"  in PyTorch's deterministic mode (warn only): gradient"
+        f" {'equal' if g1.equal(g2) else 'differs by %.3e of its max' % float((g1 - g2).abs().max() / g1.abs().max())};"
+        f" ops without a deterministic implementation: {ops}")
+
+
+@contextlib.contextmanager
+def _both_plain(gn):
+    with plain_attention_route(), plain_groupnorm_route(gn):
+        yield
+
+
 @contextlib.contextmanager
 def plain_attention_route():
     """Every attention site on the plain path while in force."""
@@ -1034,6 +1108,23 @@ def plain_groupnorm_route(gn):
         gn._forward = real
 
 
+def guided_expected(stack, gn, torch, steps: int) -> dict:
+    """Launches of one batch-1 512^2 sketch-guided request of ``steps``
+    DPM-Solver++ steps: each guided step an uncond forward and a cond
+    forward with the backward (12 flash sites), each plain step one forward
+    at batch 2; the sketch's VAE encode and the decode."""
+    from sketch2img_torch.pipelines.sketch_guided import num_guided_steps
+
+    n_guided = num_guided_steps(steps)
+    n_plain = steps - n_guided
+    per_pass, _ = stack.gn_calls(gn, torch)
+    return {"flash_fwd": FWD_SITES * (2 * n_guided + n_plain),
+            "flash_bwd_dq": BWD_SITES * n_guided, "flash_bwd_dkv": BWD_SITES * n_guided,
+            **gn_launches(gn, [(per_pass["unet_b1"], 2 * n_guided),
+                               (per_pass["unet_b2"], n_plain), (per_pass["vae_enc_b1"], 1),
+                               (per_pass["vae_dec_b1"], 1)])}
+
+
 def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
     import numpy as np
 
@@ -1053,6 +1144,7 @@ def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
     compare_guided(comps, torch, x, t, ctx, target, "plain attention path", plain_attention_route)
     compare_guided(comps, torch, x, t, ctx, target, "plain GroupNorm path",
                    functools.partial(plain_groupnorm_route, gn))
+    repeatability(comps, torch, x, t, ctx, target, gn)
 
     def run(n_steps, count, per_step=True):
         marks = []
@@ -1082,12 +1174,7 @@ def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
     n_guided = num_guided_steps(steps)
     n_plain = steps - n_guided
     forwards = 2 * n_guided + n_plain
-    per_pass, _ = stack.gn_calls(gn, torch)
-    expected = {"flash_fwd": FWD_SITES * forwards,
-                "flash_bwd_dq": BWD_SITES * n_guided, "flash_bwd_dkv": BWD_SITES * n_guided,
-                **gn_launches(gn, [(per_pass["unet_b1"], 2 * n_guided),
-                                   (per_pass["unet_b2"], n_plain), (per_pass["vae_enc_b1"], 1),
-                                   (per_pass["vae_dec_b1"], 1)])}
+    expected = guided_expected(stack, gn, torch, steps)
     gn_total = sum(launches[k] for k in gn.LAUNCHES)
     log(f"  GroupNorm launches summed over variants {gn_total}"
         f" (expected {GN_UNET * forwards + GN_VAE_ENC + GN_VAE_DEC})")
@@ -1292,8 +1379,17 @@ def run_train_lgp(stack, fa, gn, torch) -> dict:
         f" {[os.path.basename(e) for e in result.exports]}")
     if not same:
         raise PhaseError("the LGP checkpoint does not restore the trained state")
-    if [os.path.basename(e) for e in result.exports] != ["edge_predictor.pt"]:
+    if [os.path.basename(e) for e in result.exports] != ["edge_predictor.npz"]:
         raise PhaseError(f"the LGP trainer's one epoch exported {result.exports}")
+    from sketch2img_torch.core.convert import lgp_from_jax, load_params_npz
+
+    tree = load_params_npz(result.exports[0])
+    back = lgp_from_jax(tree["params"], tree["batch_stats"])
+    same = all(back[n].equal(t.cpu()) for n, t in lgp.state_dict().items()
+               if not n.endswith("num_batches_tracked"))
+    log(f"  edge_predictor.npz (the JAX package's tree) read back equal to the trained LGP: {same}")
+    if not same:
+        raise PhaseError("edge_predictor.npz does not hold the trained LGP")
     return launches
 
 
@@ -1386,6 +1482,336 @@ def inject_grad_check(stack, gn, torch, unet, clip, batch: int = 2) -> None:
     if not ok:
         raise PhaseError("the injection step's gradient through the kernels disagrees with the "
                          "plain routes")
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the HTTP server and the apps
+# ---------------------------------------------------------------------------
+
+
+def png_b64(np, img01) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray((np.clip(img01, 0, 1) * 255).astype(np.uint8)).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def decode_png(np, data: bytes):
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)))
+
+
+def image_diff(np, got, want01) -> tuple:
+    """uint8 image against a [0, 1] one: (max, mean |difference| in uint8
+    levels, share of pixels more than 16 levels off)."""
+    want = (np.clip(want01, 0, 1) * 255).astype(np.uint8)
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(d.max()), float(d.mean()), float((d > 16).mean())
+
+
+def check_served_image(np, got, want01, again01, what: str) -> str:
+    """A served uint8 image: SERVE_PX^2 RGB, not constant, and against the
+    direct pipeline call that makes the same call (same prompts, seeds,
+    sketches, batch): its mean |difference| within max(SERVE_TOL_MEAN,
+    twice the direct call's own: ``again01`` is a second run of it) and its
+    share of pixels more than 16 levels off within max(SERVE_TOL_FAR, twice
+    the direct call's own)."""
+    if got.shape != (SERVE_PX, SERVE_PX, 3) or got.dtype != np.uint8 or got.std() == 0:
+        raise PhaseError(f"{what}: served image {got.shape} {got.dtype} std {got.std()}")
+    _, mean, far = image_diff(np, got, want01)
+    _, own_mean, own_far = image_diff(np, (np.clip(again01, 0, 1) * 255).astype(np.uint8), want01)
+    tol_mean, tol_far = max(SERVE_TOL_MEAN, 2 * own_mean), max(SERVE_TOL_FAR, 2 * own_far)
+    note = (f"mean |diff| {mean:.4f} levels, {100 * far:.4f}% > 16 (the direct call against"
+            f" itself: {own_mean:.4f}, {100 * own_far:.4f}%)")
+    if mean > tol_mean or far > tol_far:
+        raise PhaseError(f"{what}: served image differs from the direct call: {note}")
+    return note
+
+
+def solo_note(np, got, solo01) -> str:
+    """How far a batched image is from its request run alone (batch 1): a
+    measurement, not a gate; on random weights the guided steps' normalised
+    update can grow a rounding difference of another batch size."""
+    mx, mean, far = image_diff(np, got, solo01)
+    return f"vs solo: max {mx}, mean {mean:.4f} levels, {100 * far:.4f}% > 16"
+
+
+def run_serve(stack, fa, gn, torch) -> dict:
+    """The port's HTTP server in-process on 127.0.0.1 (a free port), with
+    the sketch-guided pipeline and the injection pipeline over the same
+    components, micro-batching on (window ``SERVE_WINDOW_MS``, batches of
+    2), warmed at SERVE_PX^2: a 50-step sketch-guided PNG request (counted,
+    and timed against the direct call), a JSON prompt list with per-image
+    seeds, two concurrent requests that merge, an SSE stream with
+    previews, an inject request with strength and seed lists and a bad
+    solver; every image against the direct call that makes the same
+    pipeline call, and each batched one also against its request alone."""
+    import http.client
+    import json as _json
+    import threading
+
+    import numpy as np
+
+    from sketch2img_torch.apps import serve
+    from sketch2img_torch.runtime import SketchGuidedPipeline
+
+    comps, inj = stack.comps, stack.inject
+    pipe = SketchGuidedPipeline(comps)
+    px = SERVE_PX
+    sketch = sketch_image(np, px)
+    other = np.zeros((px, px), np.float32)
+    for k in range(-px // 80, px // 80 + 1):  # a diagonal stroke
+        idx = np.arange(px // 12, px - px // 12)
+        other[idx, np.clip(idx + k, 0, px - 1)] = 1.0
+    srv = serve.make_server(pipe, "127.0.0.1", 0, batch_window_ms=SERVE_WINDOW_MS, max_batch=2,
+                            inject_pipe=inj)
+    thread = threading.Thread(target=srv.serve_forever, args=(0.05,), daemon=True)
+    thread.start()
+
+    def post(body, path="/generate"):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_port, timeout=600)
+        conn.request("POST" if body is not None else "GET", path,
+                     body=_json.dumps(body) if body is not None else None)
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        if resp.getheader("Content-Type") == "application/json":
+            data = _json.loads(data)
+        return resp.status, resp.getheader("Content-Type"), data
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def direct(prompt, seed, sk, steps=SERVE_STEPS):
+        return pipe(prompt, num_inference_steps=steps, width=px, height=px, seed=seed,
+                    sketch_image=sk)
+
+    def direct_inj(prompt, seed, strength, steps=SERVE_STEPS):
+        return inj(prompt, num_inference_steps=steps, width=px, height=px, seed=seed,
+                   strength=strength, spimg=sketch)
+
+    try:
+        _, warm_s = timed(lambda: serve.warmup(srv, [(px, px, 2)]))
+        log(f"  server up on 127.0.0.1:{srv.server_port} (window {SERVE_WINDOW_MS} ms, batches of"
+            f" 2, inject route on); warmup at {px}^2 (2 steps, batch 1 and 2, text, sketch and"
+            f" inject): {warm_s:.2f} s")
+        sk_b64, other_b64 = png_b64(np, sketch), png_b64(np, other)
+        base = {"width": px, "height": px, "prompt": "a sketch of a house"}
+
+        # 1. the 50-step request, in a handler thread (a seed list bypasses the batcher)
+        body = {**base, "num_inference_steps": 50, "seed": [1234], "sketch_png_b64": sk_b64}
+        reset_counts(fa, gn)
+        (status, kind, data), served_s = timed(lambda: post(body))
+        launches = counts(fa, gn)
+        check_no_copies(fa, "served 50-step request")
+        if status != 200 or kind != "image/png":
+            raise PhaseError(f"50-step request: {status} {kind} {data!r:.200}")
+        want, direct_s = timed(lambda: direct(base["prompt"], [1234], sketch, 50))
+        (_, _, data2), served2_s = timed(lambda: post(body))
+        again, direct2_s = timed(lambda: direct(base["prompt"], [1234], sketch, 50))
+        note = check_served_image(np, decode_png(np, data), want, again, "50-step request")
+        note2 = check_served_image(np, decode_png(np, data2), want, again, "50-step request, again")
+        expected = guided_expected(stack, gn, torch, 50)
+        log(f"  served 50-step sketch-guided {px}x{px} request (PNG, handler thread), served then"
+            f" direct, twice: {served_s:.3f} s, {direct_s:.3f} s, {served2_s:.3f} s,"
+            f" {direct2_s:.3f} s (served less direct {served_s - direct_s:+.3f} /"
+            f" {served2_s - direct2_s:+.3f} s: HTTP, PNG and handler); against the direct call:"
+            f" {note}; again: {note2}; on {card_line()}")
+        log(f"  served request launches {launches} expected {expected}")
+        if launches != expected:
+            raise PhaseError(f"served request launch counts {launches} != expected {expected}")
+
+        # 2. a prompt list with per-image seeds, JSON, one sketch for both
+        body = {**base, "prompt": ["a house", "a tree"], "seed": [11, 22], "response": "json",
+                "num_inference_steps": SERVE_STEPS, "sketch_png_b64": sk_b64}
+        (status, _, data), list_s = timed(lambda: post(body))
+        if status != 200 or len(data["images"]) != 2:
+            raise PhaseError(f"prompt-list request: {status} {str(data)[:200]}")
+        got = [decode_png(np, _b64(im)) for im in data["images"]]
+        want, again = (direct(body["prompt"], body["seed"], sketch) for _ in range(2))
+        notes = [check_served_image(np, g, w, a, f"prompt list image {i}") + "; "
+                 + solo_note(np, g, direct(p, [s], sketch))
+                 for i, (g, w, a, p, s) in enumerate(zip(got, want, again, body["prompt"],
+                                                        body["seed"]))]
+        log(f"  served prompt list (B=2, seeds [11, 22], {SERVE_STEPS} steps, JSON):"
+            f" {list_s:.3f} s; nsfw {data['nsfw']}; against the direct call: {notes}")
+
+        # 3. two concurrent single-prompt requests with different sketches: one merged call
+        calls0 = srv.handler_class.batcher.calls
+        bodies = [{**base, "prompt": "a house", "seed": 31, "response": "json",
+                   "num_inference_steps": SERVE_STEPS, "sketch_png_b64": sk_b64},
+                  {**base, "prompt": "a tree", "seed": 32, "response": "json",
+                   "num_inference_steps": SERVE_STEPS, "sketch_png_b64": other_b64}]
+        results = [None, None]
+
+        def fire(i):
+            results[i] = post(bodies[i])
+
+        def pair():
+            threads = [threading.Thread(target=fire, args=(i,)) for i in range(2)]
+            threads[0].start()
+            time.sleep(0.02)
+            threads[1].start()
+            for t in threads:
+                t.join(600)
+
+        _, pair_s = timed(pair)
+        merged = srv.handler_class.batcher.calls - calls0
+        _, _, metrics = post(None, "/metrics")
+        if [r[0] for r in results] != [200, 200] or merged != 1 or "2" not in metrics["batch_sizes"]:
+            raise PhaseError(f"the two requests did not merge: statuses {[r[0] for r in results]},"
+                             f" {merged} batcher calls, batch sizes {metrics['batch_sizes']}")
+        got = [decode_png(np, _b64(r[2]["images"][0])) for r in results]
+        want, again = (direct(["a house", "a tree"], [31, 32], [sketch, other])
+                       for _ in range(2))
+        solo = [timed(lambda p=p, s=s, k=k: direct(p, s, k))
+                for p, s, k in (("a house", 31, sketch), ("a tree", 32, other))]
+        notes = [check_served_image(np, g, w, a, f"merged image {i}") + "; "
+                 + solo_note(np, g, so) for i, (g, w, a, (so, _)) in
+                 enumerate(zip(got, want, again, solo))]
+        solo_s = [t for _, t in solo]
+        log(f"  two concurrent requests ({SERVE_STEPS} steps, different sketches) merged into one"
+            f" batch-2 call: {pair_s:.3f} s for both, {pair_s / 2:.3f} s an image, against solo"
+            f" direct calls of {solo_s[0]:.3f} and {solo_s[1]:.3f} s; /metrics batch sizes"
+            f" {metrics['batch_sizes']}; against the direct batch-2 call: {notes}")
+
+        # 4. an SSE stream with latent previews
+        body = {**base, "seed": 41, "stream": True, "preview": True, "progress_every": 2,
+                "num_inference_steps": SERVE_STEPS, "sketch_png_b64": sk_b64}
+        (status, kind, raw), sse_s = timed(lambda: post(body))
+        events = [dict(line.split(": ", 1) for line in block.split("\n"))
+                  for block in raw.decode().strip().split("\n\n")]
+        kinds = [e["event"] for e in events]
+        progress = [_json.loads(e["data"]) for e in events if e["event"] == "progress"]
+        if (status != 200 or kind != "text/event-stream"
+                or kinds != ["progress"] * (SERVE_STEPS // 2) + ["result"]):
+            raise PhaseError(f"SSE stream: {status} {kind} events {kinds}")
+        sizes = {decode_png(np, _b64(p["previews"][0])).shape for p in progress}
+        if (sizes != {(px // 8, px // 8, 3)}
+                or [p["step"] for p in progress] != list(range(1, SERVE_STEPS, 2))):
+            raise PhaseError(f"SSE progress events: steps {[p['step'] for p in progress]},"
+                             f" preview shapes {sizes}")
+        result = _json.loads(events[-1]["data"])
+        note = check_served_image(np, decode_png(np, _b64(result["images"][0])),
+                                  direct(base["prompt"], 41, sketch),
+                                  direct(base["prompt"], 41, sketch), "SSE result")
+        log(f"  SSE stream ({SERVE_STEPS} steps, progress every 2, previews): {sse_s:.3f} s,"
+            f" {len(progress)} progress events (steps {[p['step'] for p in progress]}, previews"
+            f" {sorted(sizes)}), result against the direct call: {note}")
+
+        # 5. the inject route, strength and seed lists
+        body = {**base, "mode": "inject", "prompt": ["a house", "a tree"], "seed": [51, 52],
+                "strength": [0.3, 0.8], "response": "json", "num_inference_steps": SERVE_STEPS,
+                "sketch_png_b64": sk_b64}
+        (status, _, data), inj_s = timed(lambda: post(body))
+        if status != 200 or len(data["images"]) != 2 or data["nsfw"] is not None:
+            raise PhaseError(f"inject request: {status} {str(data)[:200]}")
+        got = [decode_png(np, _b64(im)) for im in data["images"]]
+        want, again = (direct_inj(body["prompt"], body["seed"], body["strength"])
+                       for _ in range(2))
+        notes = [check_served_image(np, g, w, a, f"inject image {i}") + "; "
+                 + solo_note(np, g, direct_inj(p, [s], [st]))
+                 for i, (g, w, a, p, s, st) in enumerate(zip(got, want, again, body["prompt"],
+                                                            body["seed"], body["strength"]))]
+        log(f"  served inject request (B=2, strengths [0.3, 0.8], seeds [51, 52], {SERVE_STEPS}"
+            f" steps): {inj_s:.3f} s; nsfw null; against the direct call: {notes}")
+
+        # 6. a bad solver
+        status, _, data = post({**base, "solver": "euler", "num_inference_steps": 2})
+        _, _, metrics = post(None, "/metrics")
+        log(f"  bad solver: {status} {data}; /metrics {metrics}")
+        if status != 400 or metrics["errors"] != 0 or metrics["pending"] != 0:
+            raise PhaseError(f"bad solver answered {status}; metrics {metrics}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(30)
+    log(f"  server shut down (serving thread alive: {thread.is_alive()})")
+    if thread.is_alive():
+        raise PhaseError("the serving thread did not stop")
+    return launches
+
+
+def _b64(text: str) -> bytes:
+    import base64
+
+    return base64.b64decode(text)
+
+
+def run_apps(stack, fa, gn, torch) -> dict:
+    """The apps' library entry points at 512^2 on the full-width stack:
+    ``app.inference`` (the demo's callback, a uint8 sketchpad,
+    ``APP_STEPS`` steps), ``evaluation.evaluate`` (one t=100 pass with taps
+    on a synthetic picture) and ``pic2sketch`` (the full-width generator at
+    load_size 512); each one's time and launch counts."""
+    import numpy as np
+    from PIL import Image
+
+    from sketch2img_torch.apps import app, evaluation, pic2sketch
+    from sketch2img_torch.runtime import SketchGuidedPipeline
+
+    comps = stack.comps
+    per_pass, _ = stack.gn_calls(gn, torch)
+    picture = Image.open(sorted(os.path.join(stack.images, f) for f in os.listdir(stack.images)
+                                if f.endswith(".png"))[0]).convert("RGB")
+    pad = (sketch_image(np, SERVE_PX) * 255).astype(np.uint8)
+    px = SERVE_PX
+    square = np.asarray(picture.resize((px, px), Image.LANCZOS), np.float32) / 255.0
+    runs = {
+        "app": (lambda: app.inference(SketchGuidedPipeline(comps), "a sketch of a house", 7.5,
+                                      APP_STEPS, px, px, 77, 0.5, "", pad),
+                guided_expected(stack, gn, torch, APP_STEPS)),
+        "evaluate": (lambda: evaluation.evaluate(comps, "1girl, masterpiece", "bad quality",
+                                                 square, 100, seed=5),
+                     {"flash_fwd": FWD_SITES, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                      **gn_launches(gn, [(per_pass["vae_enc_b1"], 1), (per_pass["unet_b1"], 1),
+                                         (per_pass["vae_dec_b1"], 1)])}),
+        "pic2sketch": (lambda: pic2sketch.pic2sketch(stack.gan, picture, load_size=px),
+                       {name: 0 for name in counts(fa, gn)}),
+    }
+    out = {}
+    for name, (fn, expected) in runs.items():
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(fa, gn)
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[name] = launches = counts(fa, gn)
+        if name == "app":
+            img, err = result
+            ok = img.shape == (px, px, 3) and img.dtype == np.uint8 and err is None
+            what = f"uint8 image {img.shape}, mean {img.mean():.2f}, std {img.std():.2f}"
+            ok = ok and img.std() > 0
+        elif name == "evaluate":
+            img = result
+            kept = img[img > 0]
+            ok = (img.shape == (px, px, 3) and img.dtype == np.uint8
+                  and (kept.size == 0 or kept.min() >= 127))
+            what = f"edge image {img.shape}, {100 * (img > 0).mean():.2f}% kept (>= 0.5)"
+        else:
+            arr = np.asarray(result)
+            ok = result.size == picture.size and result.mode == "RGB" and arr.std() > 0
+            what = f"sketch {result.size} {result.mode}, {100 * (arr < 128).mean():.2f}% strokes"
+        log(f"  apps {name}: {secs:.3f} s ({what}); launches {launches} expected {expected};"
+            f" on {card_line()}")
+        if not ok:
+            raise PhaseError(f"apps {name}: {what}")
+        if launches != expected:
+            raise PhaseError(f"apps {name}: launch counts {launches} != expected {expected}")
+    return out
 
 
 def run_profile(stack, torch, steps: int = 4, inject_steps: int = 5) -> None:

@@ -8,12 +8,18 @@ own tokens and the projected CLIP tokens, and the CFG pair carries the
 state [zeros; hidden] at the UI strength. The injected UNet shares the base
 UNet's weights (no copy); only the injection blocks are its own. When the
 components hold a safety checker it runs on every generation, as in
-``SketchGuidedPipeline``. The command-line demo comes with the apps slice.
+``SketchGuidedPipeline``. ``main()`` is the command-line demo:
+
+    python -m sketch2img_torch.apps.clip_guided_inf --model_path sd15/ \
+        --attn_weights sketch_attn_model.pt --clip_weights sketch_encoder_model.pt \
+        --prompt "1girl" --sketch sketch.png
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -147,3 +153,38 @@ class ClipGuidedPipeline:
         img, self.last_nsfw_flags = self.c.run_safety_checker(img)
         img = img.permute(0, 2, 3, 1).float().cpu().numpy()
         return img[0] if isinstance(prompt, str) else img
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--model_path", type=str, required=True)
+    parser.add_argument("--attn_weights", type=str, default=None)
+    parser.add_argument("--clip_weights", type=str, default=None)
+    parser.add_argument("--prompt", type=str, required=True)
+    parser.add_argument("--negative_prompt", type=str, default="")
+    parser.add_argument("--sketch", type=str, default=None)
+    parser.add_argument("--steps", type=int, default=25)
+    parser.add_argument("--guidance", type=float, default=7.5)
+    parser.add_argument("--strength", type=float, default=0.5)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--output", type=str, default="output.png")
+    args = parser.parse_args(argv)
+
+    from PIL import Image
+
+    start = time.time()
+    pipe = ClipGuidedPipeline(args.model_path, args.attn_weights, args.clip_weights)
+    print(f"pipeline built in {time.time() - start:.2f} seconds")
+
+    spimg = None
+    if args.sketch:
+        spimg = np.asarray(Image.open(args.sketch).convert("L"), np.float32) / 255.0
+    img = pipe(args.prompt, negative_prompt=args.negative_prompt,
+               num_inference_steps=args.steps, guidance_scale=args.guidance,
+               strength=args.strength, seed=args.seed, spimg=spimg)
+    Image.fromarray((img * 255).astype(np.uint8)).save(args.output)
+    print(f"wrote {args.output}")
+
+
+if __name__ == "__main__":
+    main()

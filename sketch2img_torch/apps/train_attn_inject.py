@@ -9,11 +9,11 @@ master weights and the base UNet's compute dtype, cosine LR with restarts
 after 150 warm-up steps, the optional latent cache
 (``dataset.cache_latents``: VAE moments and the CLIP pixels of the sketch
 once per image), ``checkpoint_every``, resume and checkpoint-on-signal;
-``sketch_attn_model.pt`` and ``sketch_encoder_model.pt`` in ``output_dir``
-at the end. ``main()`` is the command line.
-
-wandb logging and the hub push need the network and are not ported; a
-config that asks for them raises ``NotImplementedError``.
+``sketch_attn_model.npz`` and ``sketch_encoder_model.npz`` (the JAX
+package's npz exports) in ``output_dir`` at the end and, with
+``save_torch``, ``sketch_attn_model.pt`` and ``sketch_encoder_model.pt``.
+``main()`` is the command line. Like the JAX app, it reads neither
+``monitor.wandb_id`` nor ``monitor.huggingface_repo``.
 """
 
 from __future__ import annotations
@@ -27,12 +27,14 @@ import torch
 
 from sketch2img_torch.apps.clip_guided_inf import load_clip_weights
 from sketch2img_torch.core.config import load_config
+from sketch2img_torch.core.convert import clip_vision_to_jax, injection_to_jax
 from sketch2img_torch.core.export import clip_vision_state, sat_state, save_torch_state
 from sketch2img_torch.models.anime2sketch import load_netg
 from sketch2img_torch.models.clip_vision import VIT_L14_CONFIG, CLIPVisionEncoder
 from sketch2img_torch.models.unet import UNet2DCondition, make_sat
 from sketch2img_torch.runtime import SDComponents
 from sketch2img_torch.train import loop
+from sketch2img_torch.train.checkpoint import export_params_npz
 from sketch2img_torch.train.optim import make_lr_schedule, make_optimizer
 from sketch2img_torch.train.train_attn_inject import (
     inject_train_step,
@@ -63,8 +65,8 @@ def injected_unet(components, clip_hidden: int, seed: int) -> UNet2DCondition:
 
 def train_attn_inject(config, components, gan, clip_vision: Optional[CLIPVisionEncoder] = None,
                       *, resume: Optional[str] = None, max_steps: Optional[int] = None,
-                      sketch_fixed_size: int = 512, device: Union[str, torch.device] = "cuda",
-                      log=print) -> loop.TrainResult:
+                      sketch_fixed_size: int = 512, save_torch: bool = False,
+                      device: Union[str, torch.device] = "cuda", log=print) -> loop.TrainResult:
     """Train the injection blocks and ``clip_vision`` (moved to fp32 on
     ``device``; None: a ViT-L/14 from seed 0) for ``train_epochs`` epochs or
     ``max_steps`` steps; the generator sees the images at
@@ -72,7 +74,6 @@ def train_attn_inject(config, components, gan, clip_vision: Optional[CLIPVisionE
     tokenizer, on ``device``; ``gan``: the anime2sketch generator there.
     -> ``TrainResult`` with ``modules`` "unet", "clip", "optimizer"."""
     cfg = loop.as_config(config)
-    loop.refuse_network_options(cfg)
     c = components
     dev = loop.components_device(c, device)
     if clip_vision is None:
@@ -120,10 +121,16 @@ def train_attn_inject(config, components, gan, clip_vision: Optional[CLIPVisionE
 
     def on_end():
         os.makedirs(out_dir, exist_ok=True)
-        paths = [os.path.join(out_dir, "sketch_attn_model.pt"),
-                 os.path.join(out_dir, "sketch_encoder_model.pt")]
-        save_torch_state(paths[0], sat_state(unet))
-        save_torch_state(paths[1], clip_vision_state(clip))
+        paths = [os.path.join(out_dir, "sketch_encoder_model.npz"),
+                 os.path.join(out_dir, "sketch_attn_model.npz")]
+        export_params_npz(paths[0], clip_vision_to_jax(clip.state_dict(),
+                                                       clip.config.num_layers))
+        export_params_npz(paths[1], injection_to_jax(unet.sat.state_dict(), unet.config))
+        if save_torch:
+            paths += [os.path.join(out_dir, "sketch_attn_model.pt"),
+                      os.path.join(out_dir, "sketch_encoder_model.pt")]
+            save_torch_state(paths[2], sat_state(unet))
+            save_torch_state(paths[3], clip_vision_state(clip))
         return paths
 
     result = loop.run(cfg, data, step=step, state=state, load_state=load_state, device=dev,
@@ -145,15 +152,14 @@ def parse_args(argv=None):
     ap.add_argument("--clip_vision", type=str, default=None,
                     help="CLIP ViT-L/14 weights (a CLIPVisionModel state dict, .pt/.bin)")
     ap.add_argument("--save_torch", action="store_true",
-                    help="accepted for the JAX app's command line; both .pt files are "
-                         "always written")
+                    help="also write sketch_attn_model.pt and sketch_encoder_model.pt (the "
+                         "reference's torch layouts) beside the npz exports")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     config = load_config(args.config)
-    loop.refuse_network_options(config)
     components = SDComponents.from_diffusers_dir(config.model_path)
     gan = load_netg(args.netg)
     clip = None
@@ -162,7 +168,8 @@ def main(argv=None) -> None:
             clip = CLIPVisionEncoder(VIT_L14_CONFIG)
         clip.load_state_dict(load_clip_weights(args.clip_vision, VIT_L14_CONFIG.num_layers),
                              strict=True, assign=True)
-    train_attn_inject(config, components, gan, clip, resume=args.resume)
+    train_attn_inject(config, components, gan, clip, resume=args.resume,
+                      save_torch=args.save_torch)
     print("done")
 
 

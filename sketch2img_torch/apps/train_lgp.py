@@ -6,9 +6,11 @@ against the frozen SD stack in ``components`` and the anime2sketch
 plain loader, the optional latent cache (``dataset.cache_latents``:
 pixels' and sketches' VAE moments once per image, not under ARB),
 constant LR after 150 warm-up steps, ``checkpoint_every``, resume, the
-``sampling:`` block, checkpoint-on-signal, and ``edge_predictor.pt`` in
-``output_dir`` at each epoch's end. ``main()`` is the command line: it
-loads the SD1.x directory of ``model_path`` and ``netG.pth`` and calls it.
+``sampling:`` block, checkpoint-on-signal, and at each epoch's end
+``edge_predictor.npz`` in ``output_dir`` (the JAX package's npz export,
+``{"params", "batch_stats"}``) and, with ``save_torch``,
+``edge_predictor.pt``. ``main()`` is the command line: it loads the SD1.x
+directory of ``model_path`` and ``netG.pth`` and calls it.
 
 wandb logging and the hub push need the network and are not ported; a
 config that asks for them raises ``NotImplementedError``.
@@ -23,12 +25,14 @@ from typing import Optional, Union
 import torch
 
 from sketch2img_torch.core.config import load_config
+from sketch2img_torch.core.convert import lgp_to_jax
 from sketch2img_torch.core.export import lgp_state, save_torch_state
 from sketch2img_torch.models.anime2sketch import load_netg
 from sketch2img_torch.models.lgp import LatentEdgePredictor
 from sketch2img_torch.models.unet import tap_channels
 from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline
 from sketch2img_torch.train import loop
+from sketch2img_torch.train.checkpoint import export_params_npz
 from sketch2img_torch.train.optim import make_lr_schedule, make_optimizer
 from sketch2img_torch.train.sampling import TrainingSampler
 from sketch2img_torch.train.train_lgp import Frozen, generate_sketch, lgp_train_step
@@ -36,15 +40,16 @@ from sketch2img_torch.train.train_lgp import Frozen, generate_sketch, lgp_train_
 
 def train_lgp(config, components, gan, *, resume: Optional[str] = None,
               max_steps: Optional[int] = None, network_weights: Optional[str] = None,
-              sketch_fixed_size: int = 1024, device: Union[str, torch.device] = "cuda",
-              log=print) -> loop.TrainResult:
+              sketch_fixed_size: int = 1024, save_torch: bool = False,
+              device: Union[str, torch.device] = "cuda", log=print) -> loop.TrainResult:
     """Train an LGP (seeded from ``config.seed``, or ``network_weights``, an
     ``edge_predictor.pt``) for ``train_epochs`` epochs or ``max_steps``
     steps; the generator sees the images at ``sketch_fixed_size``^2.
     ``components``: ``runtime.SDComponents`` with a tokenizer, on
     ``device``; ``gan``: the anime2sketch generator there. ``resume``: a
     checkpoint file or directory. -> ``TrainResult``; the LGP's weights are
-    in the last checkpoint and in ``output_dir/edge_predictor.pt``."""
+    in the last checkpoint and in ``output_dir/edge_predictor.npz`` (and
+    ``.pt`` with ``save_torch``)."""
     cfg = loop.as_config(config)
     loop.refuse_network_options(cfg)
     c = components
@@ -102,9 +107,12 @@ def train_lgp(config, components, gan, *, resume: Optional[str] = None,
         if sampler.should_sample(epoch=epoch):
             sampler(f"epoch{epoch + 1}")
         os.makedirs(out_dir, exist_ok=True)
-        path = os.path.join(out_dir, "edge_predictor.pt")
-        save_torch_state(path, lgp_state(lgp))
-        return [path]
+        paths = [os.path.join(out_dir, "edge_predictor.npz")]
+        export_params_npz(paths[0], lgp_to_jax(lgp.state_dict()))
+        if save_torch:
+            paths.append(os.path.join(out_dir, "edge_predictor.pt"))
+            save_torch_state(paths[1], lgp_state(lgp))
+        return paths
 
     result = loop.run(cfg, data, step=step, state=state, load_state=load_state, device=dev,
                       ckpt_dir=cfg.get_path("checkpoint_dir", "checkpoints/lgp"), resume=resume,
@@ -124,8 +132,8 @@ def parse_args(argv=None):
     ap.add_argument("--netg", type=str, default="weights/netG.pth",
                     help="anime2sketch generator weights")
     ap.add_argument("--save_torch", action="store_true",
-                    help="accepted for the JAX app's command line; edge_predictor.pt is "
-                         "always written")
+                    help="also write edge_predictor.pt (the reference's torch layout) beside "
+                         "edge_predictor.npz")
     return ap.parse_args(argv)
 
 
@@ -135,7 +143,8 @@ def main(argv=None) -> None:
     loop.refuse_network_options(config)
     components = SDComponents.from_diffusers_dir(config.model_path)
     gan = load_netg(args.netg)
-    train_lgp(config, components, gan, resume=args.resume, network_weights=args.network_weights)
+    train_lgp(config, components, gan, resume=args.resume, network_weights=args.network_weights,
+              save_torch=args.save_torch)
     print("done")
 
 

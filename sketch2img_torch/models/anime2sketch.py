@@ -84,6 +84,12 @@ def create_anime2sketch(num_downs: int = 8, ngf: int = 64) -> UnetGenerator:
     return UnetGenerator(3, 1, num_downs, ngf)
 
 
+def binarize_sketch(raw: torch.Tensor) -> torch.Tensor:
+    """The generator's output in [-1, 1] -> 1 - output, thresholded at 0.5
+    to {0, 1} (dark strokes 0)."""
+    return torch.where(1.0 - raw < 0.5, 0.0, 1.0)
+
+
 def strip_module_prefix(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A DataParallel-saved state dict (``module.``-prefixed keys) -> plain keys."""
     if any(k.startswith("module.") for k in sd):

@@ -35,6 +35,7 @@ tensor launches the kernel, and any failure to build or launch raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -51,6 +52,7 @@ MAX_HEAD_DIM = 256
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _lib = None
+_lib_lock = threading.Lock()
 
 _ptr, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _VIEW = [_ptr, _i64, _i64, _i64]  # a tensor's base and its B, H, N strides
@@ -71,17 +73,16 @@ def reset_launch_counts() -> None:
 
 
 def load_library(verbose: bool = False):
-    """Build (first use) and load the kernels' shared library."""
+    """Build (first use) and load the kernels' shared library. Threads that
+    reach a first use together build it once: the rest wait for it."""
     global _lib
     if _lib is None:
-        from sketch2img_torch.utils.cuda_build import build_library
+        with _lib_lock:
+            if _lib is None:
+                from sketch2img_torch.utils.cuda_build import load_ctypes_library
 
-        lib = ctypes.CDLL(build_library("flash_attention", SOURCES, HEADERS,
-                                        verbose=verbose))
-        for name, argtypes in ARGTYPES.items():
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
-        _lib = lib
+                _lib = load_ctypes_library("flash_attention", SOURCES, HEADERS, ARGTYPES,
+                                           verbose=verbose)
     return _lib
 
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -56,6 +57,7 @@ _TARGET_BLOCKS = 4 * _SMS
 _MIN_CHUNK = 2048
 _MAX_SPLIT = 256
 _lib = None
+_lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -81,16 +83,16 @@ ARGTYPES = {
 
 
 def load_library(verbose: bool = False):
-    """Build (first use) and load the kernel's shared library."""
+    """Build (first use) and load the kernel's shared library. Threads that
+    reach a first use together build it once: the rest wait for it."""
     global _lib
     if _lib is None:
-        from sketch2img_torch.utils.cuda_build import build_library
+        with _lib_lock:
+            if _lib is None:
+                from sketch2img_torch.utils.cuda_build import load_ctypes_library
 
-        lib = ctypes.CDLL(build_library("groupnorm", SOURCES, HEADERS, verbose=verbose))
-        for name, argtypes in ARGTYPES.items():
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
-        _lib = lib
+                _lib = load_ctypes_library("groupnorm", SOURCES, HEADERS, ARGTYPES,
+                                           verbose=verbose)
     return _lib
 
 

@@ -7,7 +7,10 @@ LGP and safety checker), the schedule and the tokenizer, all on one device, froz
 computes the gradient with respect to the latent and no weight gradient.
 ``SketchGuidedPipeline.__call__`` is the reference demo's call signature;
 when a safety checker is loaded it runs on every generation and blacks out
-flagged images (``last_nsfw_flags``). Everything defaults to ``device="cuda"`` and raises without a GPU.
+flagged images (``last_nsfw_flags``). ``save_native`` / ``from_native``
+write and read the JAX package's native npz checkpoint (its parameter
+trees, float32), so a directory written by either package loads in the
+other. Everything defaults to ``device="cuda"`` and raises without a GPU.
 """
 
 from __future__ import annotations
@@ -191,11 +194,81 @@ class SDComponents:
 
     def load_lgp_torch(self, path: str) -> None:
         """Load the published ``edge_predictor.pt`` strictly (kept fp32)."""
-        sd = torch.load(path, map_location="cpu", weights_only=True)
+        self.load_lgp_state(torch.load(path, map_location="cpu", weights_only=True))
+
+    def load_lgp_state(self, sd: Dict[str, torch.Tensor]) -> None:
+        """An LGP state dict (``edge_predictor.pt`` layout), loaded strictly
+        into an LGP sized from it (kept fp32)."""
         lgp = LatentEdgePredictor(input_dim=sd["layers.0.weight"].shape[1],
                                   output_dim=sd["layers.12.weight"].shape[0])
         lgp.load_state_dict(sd, strict=True)
         self.lgp = _frozen(lgp, self.device)
+
+    def save_native(self, directory: str) -> None:
+        """Write the native npz checkpoint: ``unet.npz``, ``vae.npz``,
+        ``text.npz`` and, with an LGP, ``lgp.npz``, each the JAX package's
+        parameter tree in float32 (its ``from_native`` loads the directory,
+        and so does ``from_native`` here)."""
+        from sketch2img_torch.core.convert import (
+            clip_text_to_jax,
+            lgp_to_jax,
+            unet_to_jax,
+            vae_to_jax,
+        )
+        from sketch2img_torch.train.checkpoint import export_params_npz
+
+        os.makedirs(directory, exist_ok=True)
+        trees = {"unet": unet_to_jax(self.unet.state_dict(), self.unet.config),
+                 "vae": vae_to_jax(self.vae.state_dict(), self.vae.config),
+                 "text": clip_text_to_jax(self.text_encoder.state_dict(),
+                                          self.text_encoder.config.num_layers)}
+        if self.lgp is not None:
+            trees["lgp"] = lgp_to_jax(self.lgp.state_dict())
+        for name, tree in trees.items():
+            export_params_npz(os.path.join(directory, name + ".npz"), tree)
+
+    @classmethod
+    def from_native(
+        cls,
+        directory: str,
+        *,
+        compute_dtype: torch.dtype = torch.bfloat16,
+        unet_config: UNetConfig = SD15_CONFIG,
+        vae_config: VAEConfig = SD15_VAE_CONFIG,
+        text_config: CLIPTextConfig = SD15_TEXT_CONFIG,
+        tokenizer=None,
+        device: Union[str, torch.device] = "cuda",
+    ) -> "SDComponents":
+        """Load a native npz checkpoint (``save_native`` of either package)
+        with strict ``load_state_dict``; ``lgp.npz`` when present."""
+        from sketch2img_torch.core.convert import (
+            clip_text_from_jax,
+            lgp_from_jax,
+            load_params_npz,
+            unet_from_jax,
+            vae_from_jax,
+        )
+
+        dev = resolve_device(device)
+        set_precision()
+
+        def tree(name):
+            return load_params_npz(os.path.join(directory, name + ".npz"))
+
+        with torch.device("meta"):
+            unet = UNet2DCondition(unet_config)
+            vae = AutoencoderKL(vae_config)
+            text = CLIPTextEncoder(text_config)
+        for module, sd in ((unet, unet_from_jax(tree("unet"), unet_config)),
+                           (vae, vae_from_jax(tree("vae"), vae_config)),
+                           (text, clip_text_from_jax(tree("text"), text_config.num_layers))):
+            module.load_state_dict(sd, strict=True, assign=True)
+        c = cls(unet=_frozen(unet, dev), vae=_frozen(vae, dev), text_encoder=_frozen(text, dev),
+                schedule=make_schedule(), device=dev, tokenizer=tokenizer)
+        if os.path.exists(os.path.join(directory, "lgp.npz")):
+            lgp = tree("lgp")
+            c.load_lgp_state(lgp_from_jax(lgp["params"], lgp["batch_stats"]))
+        return c.cast_params(compute_dtype)
 
     def cast_params(self, dtype: torch.dtype = torch.bfloat16) -> "SDComponents":
         """Cast the UNet, VAE, text encoder and safety checker to ``dtype``

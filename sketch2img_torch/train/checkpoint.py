@@ -7,14 +7,19 @@ the step generator's state, so that a run resumed from it continues the
 uninterrupted run exactly (``apps/train_lgp.py``). The newest ``keep`` are
 kept. (The JAX package writes Orbax directories; the two do not read each
 other's.)
+
+``export_params_npz`` writes a model-only export in the JAX package's npz
+format: a flat npz whose keys are the ``/``-joined paths of a parameter
+tree (``core/convert.py``'s ``*_to_jax`` make the trees).
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -55,3 +60,18 @@ def restore_train_state(path: str, map_location="cpu") -> Dict[str, Any]:
             raise FileNotFoundError(f"no step_<N>.pt checkpoint in {path}")
         path = found
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def _flat(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, np.asarray(v)
+
+
+def export_params_npz(path: str, params: Mapping) -> None:
+    """A nested parameter tree -> a flat npz at ``path`` ("a/b/c" keys), as
+    the JAX package's ``export_params_npz`` writes it and its
+    ``load_params_npz`` reads it."""
+    np.savez(path, **dict(_flat(params)))

@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from sketch2img_torch.core.schedulers import DiffusionSchedule, add_noise, get_noise_level
+from sketch2img_torch.models.anime2sketch import binarize_sketch
 from sketch2img_torch.models.unet import concat_taps
 from sketch2img_torch.models.vae import sample_latent
 from sketch2img_torch.ops.resize import resize_bicubic
@@ -48,9 +49,8 @@ def generate_sketch(gan, px: torch.Tensor, fixed: int = 1024,
     tile to three channels, bicubic back to H x W. fp32 out."""
     b, _, h, w = px.shape
     big = resize_bicubic(px.float(), fixed, fixed)
-    val = 1.0 - gan(big).float()  # (B, 1, fixed, fixed)
-    if binarize:
-        val = torch.where(val < 0.5, 0.0, 1.0)
+    raw = gan(big).float()  # (B, 1, fixed, fixed)
+    val = binarize_sketch(raw) if binarize else 1.0 - raw
     return resize_bicubic(val.expand(b, 3, fixed, fixed), h, w)
 
 

@@ -9,11 +9,12 @@ hash of the sources and flags. Nothing here runs when a module is imported.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -79,4 +80,15 @@ def build_library(name: str, sources: Sequence[str], headers: Sequence[str] = ()
     if link.returncode != 0:
         raise RuntimeError(f"linking {lib} failed:\n{link.stdout}")
     os.replace(tmp, lib)
+    return lib
+
+
+def load_ctypes_library(name: str, sources: Sequence[str], headers: Sequence[str],
+                        argtypes: Dict[str, list], verbose: bool = False) -> ctypes.CDLL:
+    """``build_library``, loaded with ctypes, each C entry point in
+    ``argtypes`` declared with its parameters and an int result."""
+    lib = ctypes.CDLL(build_library(name, sources, headers, verbose=verbose))
+    for fn, types in argtypes.items():
+        getattr(lib, fn).argtypes = types
+        getattr(lib, fn).restype = ctypes.c_int
     return lib

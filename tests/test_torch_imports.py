@@ -39,6 +39,12 @@ TRAINING_MODULES = [
     "sketch2img_torch.train.signals", "sketch2img_torch.train.train_attn_inject",
     "sketch2img_torch.train.train_lgp",
 ]
+# every module of the apps slice
+APPS_MODULES = [
+    "sketch2img_torch.apps.app", "sketch2img_torch.apps.clip_guided_inf",
+    "sketch2img_torch.apps.convert_checkpoint", "sketch2img_torch.apps.evaluation",
+    "sketch2img_torch.apps.pic2sketch", "sketch2img_torch.apps.serve",
+]
 
 
 @pytest.fixture(scope="module")
@@ -68,13 +74,15 @@ def test_port_imports_no_jax(subprocesses):
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["names"]) >= 15 and got["bad"] == [], out.stdout
-    missing = sorted(set(TRAINING_MODULES) - set(got["names"]))
+    missing = sorted(set(TRAINING_MODULES + APPS_MODULES) - set(got["names"]))
     assert not missing, missing
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the no-GPU refusal cannot be observed here")
+    from sketch2img_torch.apps.app import build_pipeline
+    from sketch2img_torch.apps.clip_guided_inf import ClipGuidedPipeline
     from sketch2img_torch.apps.train_attn_inject import train_attn_inject
     from sketch2img_torch.apps.train_lgp import train_lgp
     from sketch2img_torch.models.anime2sketch import load_netg
@@ -87,6 +95,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         SDComponents.random_init()
     with pytest.raises(RuntimeError, match="cuda"):
         SDComponents.from_diffusers_dir("/nonexistent")
+    with pytest.raises(RuntimeError, match="cuda"):
+        SDComponents.from_native("/nonexistent")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_pipeline("/nonexistent", "/nonexistent.pt")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ClipGuidedPipeline("/nonexistent")
     for trainer in (train_lgp, train_attn_inject):
         with pytest.raises(RuntimeError, match="cuda"):
             trainer({}, None, None)

@@ -9,8 +9,10 @@ BatchNorm statistics. Then the LGP BatchNorm's running variance (flax's
 biased update), the static text chunking, the cached-latent steps, and the
 two apps' library functions on a tiny stack on the CPU: checkpoint round
 trip, resume against an uninterrupted run, checkpoint-on-signal, the
-exported ``.pt`` files loaded strictly by the JAX package's loaders, and the
-refusal of network options.
+exported ``.pt`` files (``save_torch``) loaded strictly by the JAX
+package's loaders, the npz exports loaded by its ``load_params_npz`` with
+the key paths its trainers write, and the network options (refused by the
+LGP trainer, ignored by the injection trainer, as in the JAX apps).
 
 Weights come from tests/torch_port_stack.py (JAX parameters converted from
 the port's state dicts, no flax init); fp32 on the CPU.
@@ -63,6 +65,7 @@ from sketch2img_tpu.train.train_attn_inject import (
     make_inject_train_step,
 )
 from sketch2img_tpu.train.train_lgp import encode_tokens_static as j_encode_tokens_static
+from sketch2img_tpu.train.checkpoint import load_params_npz as j_load_params_npz
 from sketch2img_tpu.train.train_lgp import init_lgp_train_state, make_lgp_train_step
 
 from fakes import FakeTokenizer
@@ -410,7 +413,7 @@ def _assert_same(a, b, path=""):
 @pytest.fixture(scope="module")
 def full_runs(models, components, folder, tmp_path_factory):
     """Each trainer uninterrupted for its two epochs (six steps), the LGP
-    one with mid-training samples each epoch."""
+    one with mid-training samples each epoch; the ``.pt`` exports too."""
     out = {}
     for kind in ("lgp", "inject"):
         tmp = tmp_path_factory.mktemp(f"full_{kind}")
@@ -418,7 +421,8 @@ def full_runs(models, components, folder, tmp_path_factory):
         if kind == "lgp":
             extra["sampling"] = dict(enabled=True, every_n_epochs=1, prompts=["a", "b"], steps=2,
                                      height=PX, width=PX, save_dir=str(tmp / "samples"))
-        out[kind] = (tmp, _train(kind, models, components, _config(tmp, folder, **extra)))
+        out[kind] = (tmp, _train(kind, models, components, _config(tmp, folder, **extra),
+                                 save_torch=True))
     return out
 
 
@@ -426,7 +430,8 @@ def full_runs(models, components, folder, tmp_path_factory):
 def test_app_trains_checkpoints_and_exports(full_runs, kind):
     """Six finite steps; the last checkpoint holds the trained state (step,
     trainables, optimizer); the LGP run wrote its samples and one
-    ``edge_predictor.pt`` per epoch, the injection run both ``.pt`` files."""
+    ``edge_predictor.npz`` and ``.pt`` per epoch, the injection run both
+    npz and both ``.pt`` files."""
     tmp, result = full_runs[kind]
     assert result.step == 6 and len(result.losses) == 6 and np.isfinite(result.losses).all()
     assert not result.interrupted
@@ -435,11 +440,12 @@ def test_app_trains_checkpoints_and_exports(full_runs, kind):
     _assert_same({k: saved[k] for k in _state(kind, result)}, _state(kind, result))
     names = sorted(p.rsplit("/", 1)[-1] for p in result.exports)
     if kind == "lgp":
-        assert names == ["edge_predictor.pt"] * 2
+        assert names == ["edge_predictor.npz"] * 2 + ["edge_predictor.pt"] * 2
         assert sorted(p.name for p in (tmp / "samples").iterdir()) == [
             "epoch1_0.png", "epoch1_1.png", "epoch2_0.png", "epoch2_1.png"]
     else:
-        assert names == ["sketch_attn_model.pt", "sketch_encoder_model.pt"]
+        assert names == ["sketch_attn_model.npz", "sketch_attn_model.pt",
+                         "sketch_encoder_model.npz", "sketch_encoder_model.pt"]
 
 
 @pytest.mark.parametrize("kind", ["lgp", "inject"])
@@ -462,6 +468,32 @@ def test_exports_load_strictly_in_jax(full_runs, models, kind):
         n = VISION_KW["num_layers"]
         vision = load_clip_weights(str(out / "sketch_encoder_model.pt"), n)
         _tree_close(vision, convert_torch_clip_vision(result.modules["clip"].state_dict(), n), 0.0)
+
+
+@pytest.mark.parametrize("kind", ["lgp", "inject"])
+def test_npz_exports_load_in_jax(full_runs, models, kind):
+    """The npz exports (written with or without ``save_torch``) through the
+    JAX package's ``load_params_npz``: the trees its trainers export
+    (``{"params", "batch_stats"}`` of the LGP; the injection subtree and the
+    ViT's params), key path for key path, holding the trained tensors
+    exactly."""
+    tmp, result = full_runs[kind]
+    out = tmp / "out"
+    if kind == "lgp":
+        params, stats = convert_torch_lgp(result.modules["lgp"].state_dict())
+        want = {"edge_predictor.npz": {"params": params, "batch_stats": stats}}
+    else:
+        cfg = models["inj"][1].config
+        n = VISION_KW["num_layers"]
+        want = {"sketch_attn_model.npz":
+                    convert_torch_sat(result.modules["unet"].sat.state_dict(), cfg),
+                "sketch_encoder_model.npz":
+                    convert_torch_clip_vision(result.modules["clip"].state_dict(), n)}
+    for name, tree in want.items():
+        got = j_load_params_npz(str(out / name))
+        assert (jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(tree)), name
+        _tree_close(got, tree, 0.0)
+        assert all(np.asarray(x).dtype == np.float32 for x in jax.tree_util.tree_leaves(got))
 
 
 @pytest.mark.parametrize("kind", ["lgp", "inject"])
@@ -511,10 +543,12 @@ def test_signal_saves_and_stops_then_resume_finishes(models, components, folder,
 
 @pytest.mark.parametrize("option", ["monitor.wandb_id", "monitor.huggingface_repo"])
 def test_network_options_raise(models, components, folder, tmp_path, option):
-    """wandb and the hub push are not ported: asking for either raises
-    before any step."""
+    """wandb and the hub push are not ported: the LGP trainer, whose JAX
+    app uses them, raises before any step; the injection trainer, whose JAX
+    app reads neither option, ignores it and trains."""
     section, key = option.split(".")
     cfg = _config(tmp_path, folder, **{section: {key: "someone/something"}})
-    for kind in ("lgp", "inject"):
-        with pytest.raises(NotImplementedError, match=key):
-            _train(kind, models, components, cfg, max_steps=1)
+    with pytest.raises(NotImplementedError, match=key):
+        _train("lgp", models, components, cfg, max_steps=1)
+    result = _train("inject", models, components, cfg, max_steps=1)
+    assert result.step == 1 and np.isfinite(result.losses).all()

@@ -124,3 +124,65 @@ def clip_vision_pair(seed=0):
     params = jvision.convert_torch_clip_vision(port.state_dict(),
                                                num_layers=VISION_KW["num_layers"])
     return port, jvision.CLIPVisionEncoder(jvision.CLIPVisionConfig(**VISION_KW)), params
+
+
+# A tiny diffusers-format SD1.x directory: torch.save ``.bin`` files of the
+# diffusers-named mirror modules (tests/torch_sd_mirror.py; the port's own
+# CLIP text encoder) and a byte-level BPE tokenizer with no merges.
+DIR_CLIP_KW = dict(CLIP_KW, vocab_size=520)
+DIR_UNET_KW = dict(UNET_KW, cross_attention_dim=DIR_CLIP_KW["hidden_size"])
+DIR_VAE_KW = dict(block_out_channels=(32, 32, 32, 32), layers_per_block=1)  # 8x, as SD's
+
+
+def write_diffusers_dir(root, seed=0):
+    """-> the state dicts written under ``root``, by subpath."""
+    import json
+    import os
+
+    from sketch2img_torch.data.tokenizer import BOS_TOKEN, EOS_TOKEN, bytes_to_unicode
+    from torch_sd_mirror import TorchMiniUNet, TorchMiniVAE
+
+    torch.manual_seed(seed)
+    unet = TorchMiniUNet(block_out=DIR_UNET_KW["block_out_channels"], layers=1,
+                         cross=DIR_UNET_KW["cross_attn"], context_dim=DIR_CLIP_KW["hidden_size"],
+                         heads=DIR_UNET_KW["num_heads"])
+    vae = TorchMiniVAE(block_out=DIR_VAE_KW["block_out_channels"], layers=1)
+    text = tclip.CLIPTextEncoder(tclip.CLIPTextConfig(**DIR_CLIP_KW))
+    sds = {"unet/diffusion_pytorch_model": _perturb(unet, seed).state_dict(),
+           "vae/diffusion_pytorch_model": _perturb(vae, seed).state_dict(),
+           "text_encoder/model": _perturb(text, seed).state_dict()}
+    for sub, sd in sds.items():
+        os.makedirs(os.path.join(root, os.path.dirname(sub)), exist_ok=True)
+        torch.save(sd, os.path.join(root, sub) + ".bin")
+    symbols = list(bytes_to_unicode().values())
+    vocab = {s: i for i, s in enumerate(symbols + [s + "</w>" for s in symbols]
+                                        + [BOS_TOKEN, EOS_TOKEN])}
+    os.makedirs(os.path.join(root, "tokenizer"), exist_ok=True)
+    with open(os.path.join(root, "tokenizer", "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(root, "tokenizer", "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    return sds
+
+
+def dir_lgp(seed=0):
+    """A perturbed LGP sized to the directory's UNet taps."""
+    torch.manual_seed(seed)
+    return _perturb(tlgp.LatentEdgePredictor(
+        input_dim=tunet.tap_channels(tunet.UNetConfig(**DIR_UNET_KW)) + 4 + 36), seed)
+
+
+def dir_component_kw():
+    """``SDComponents.from_diffusers_dir`` / ``from_native`` keywords for the
+    directory: its configs, fp32, on the CPU."""
+    return dict(unet_config=tunet.UNetConfig(**DIR_UNET_KW),
+                vae_config=tvae.VAEConfig(**DIR_VAE_KW),
+                text_config=tclip.CLIPTextConfig(**DIR_CLIP_KW),
+                compute_dtype=torch.float32, device="cpu")
+
+
+def jax_dir_config_kw():
+    """The JAX package's configs for the directory (``from_native``)."""
+    return dict(unet_config=junet.UNetConfig(**DIR_UNET_KW),
+                vae_config=jvae.VAEConfig(**DIR_VAE_KW),
+                text_config=jclip.CLIPTextConfig(**DIR_CLIP_KW))
