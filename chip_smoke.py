@@ -74,10 +74,31 @@ Phases, each printing its own lines:
               ``evaluation.evaluate`` (one t=100 pass with taps) and
               ``pic2sketch`` (the full-width generator at load_size 512), at
               512^2, each timed with its launch counts;
-  9. profile  (only when asked: --phases build,profile) device time by
+  9. remat    the UNet recomputed in the guided backward
+              (``UNetConfig.remat``): one guided pass at 512^2 with remat on
+              against off (eps bit-identical, the gradient within the e2e
+              gate, the launch counts the recomputation implies, the peak
+              memory of each), a 50-step sketch-guided request with
+              ``remat=True`` timed against ``remat=False`` (its launch counts
+              derived), the calibration rows of ``core/memory.py`` measured
+              on this card (``measure_guided_gib``), and a few steps of a
+              guided request at the smallest 512^2 batch the calibration
+              flags, with ``remat=None``: remat chosen, no out-of-memory, its
+              peak beside the budget;
+ 10. dist     ``torch.distributed`` on the card: the process group at world
+              size 1 over NCCL; one step of each trainer through the
+              data-parallel code against the step without a mesh, and
+              ``SketchGuidedPipeline(mesh=make_mesh())`` against
+              ``mesh=None`` for a short request, bit for bit (PyTorch's
+              deterministic mode: cuDNN's backward is not repeatable
+              otherwise); then tensor parallelism at m = 2 as two processes
+              sharing the card over gloo: each rank's guided pass (flash at
+              4 local heads) against the one-process pass;
+ 11. profile  (only when asked: --phases build,profile) device time by
               kernel over a 4-step sketch-guided request, a 5-step batch-8
               injection request and one step of each trainer, from
-              torch.profiler.
+              torch.profiler. (``--phases build,calibrate`` measures the
+              calibration cases alone.)
 
 Then one JSON line listing the kernels, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -144,6 +165,15 @@ SERVE_WINDOW_MS, SERVE_STEPS, SERVE_PX = 200, 10, 512
 SERVE_TOL_MEAN, SERVE_TOL_FAR = 2.0, 0.01
 # the demo's default steps (app.inference)
 APP_STEPS = 25
+# tensor parallelism over two ranks: each keeps half of the 8 heads
+TP_RANKS = 2
+# the guided backward under remat recomputes each block it reaches: the 12
+# flash sites it differentiates, and every GroupNorm but the last up block's
+# nine and conv_norm_out (their outputs feed only eps), the first 51 calls
+# of a pass in execution order
+REMAT_FWD_SITES, REMAT_GN = BWD_SITES, GN_UNET - 10
+# steps of the request at the smallest batch the calibration flags
+REMAT_STEPS = 3
 REPLACES = {
     "flash_fwd": "sketch2img_tpu/ops/flash_attention.py:211 (_fwd_kernel; _fwd_kernel_t :331)",
     "flash_bwd_dq": "sketch2img_tpu/ops/flash_attention.py:601 (_bwd_dq_kernel; _bwd_dq_kernel_t :421)",
@@ -327,6 +357,10 @@ def flash_cases():
     for n, d in MAIN_SHAPES:
         for b in (1, 2):
             cases.append(("main", b, HEADS, n, n, None, d, b == 1, "heads"))
+    for n, d in MAIN_SHAPES:  # tensor parallelism at m = 2: one rank's local heads
+        cases.append(("tp_attn1", 1, HEADS // TP_RANKS, n, n, None, d, True, "heads"))
+        cases.append(("tp_inject_attn1", 2 * INJ_BATCH, HEADS // TP_RANKS, n, n, None, d, False,
+                      "heads"))
     cases.append(("ragged", 1, HEADS, 300, 300, None, 40, True, "heads"))
     cases.append(("kv_len", 1, HEADS, 4096, 4480, 4353, 40, True, "heads"))
     for n, d in MAIN_SHAPES:
@@ -752,10 +786,15 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,e2e,inject,train_lgp,train_inject,serve,apps")
+                    default="build,kernels,e2e,inject,train_lgp,train_inject,serve,apps,remat,"
+                            "dist")
     ap.add_argument("--steps", type=int, default=50, help="sampling steps of the e2e request")
     ap.add_argument("--ptxas", action="store_true", help="print ptxas register/smem use")
+    ap.add_argument("--tp-worker", nargs=3, metavar=("RANK", "INIT_FILE", "OUT"),
+                    help=argparse.SUPPRESS)  # one rank of the dist phase's TP run
     args = ap.parse_args(argv)
+    if args.tp_worker:
+        return tp_worker(*args.tp_worker)
     phases = [p.strip() for p in args.phases.split(",") if p.strip()]
 
     import torch
@@ -826,6 +865,18 @@ def main(argv=None) -> int:
             t0 = time.time()
             launches.update({f"apps_{k}": v for k, v in run_apps(stack, fa, gn, torch).items()})
             log(f"phase apps: ok, {time.time() - t0:.2f} s")
+        if "remat" in phases:
+            t0 = time.time()
+            launches["remat"] = run_remat(stack, fa, gn, torch)
+            log(f"phase remat: ok, {time.time() - t0:.2f} s")
+        if "calibrate" in phases:
+            t0 = time.time()
+            calibration_rows(stack, torch)
+            log(f"phase calibrate: ok, {time.time() - t0:.2f} s")
+        if "dist" in phases:
+            t0 = time.time()
+            launches["dist"] = run_dist(stack, fa, gn, torch)
+            log(f"phase dist: ok, {time.time() - t0:.2f} s")
         if "profile" in phases:
             t0 = time.time()
             run_profile(stack, torch)
@@ -885,14 +936,14 @@ class StandInTokenizer:
         return self._Out(encode(text) if isinstance(text, str) else [encode(s) for s in text])
 
 
-def guided_pass(comps, torch, x, t, ctx, target):
+def guided_pass(comps, torch, x, t, ctx, target, remat=False):
     """The differentiated half of a guided step: cond UNet forward with taps,
     fused LGP head, MSE against the sketch latent, gradient w.r.t. x."""
     from sketch2img_torch.core.schedulers import get_noise_level
     from sketch2img_torch.models.lgp import lgp_fused_apply
 
     xc = x.detach().requires_grad_(True)
-    eps, taps = comps.unet(xc, t, ctx, capture_taps=True)
+    eps, taps = comps.unet(xc, t, ctx, capture_taps=True, remat=remat)
     out = lgp_fused_apply(comps.lgp, taps, get_noise_level(comps.schedule, x, t),
                           x.shape[2], x.shape[3])
     loss = torch.mean((target - out.float()) ** 2)
@@ -1108,19 +1159,23 @@ def plain_groupnorm_route(gn):
         gn._forward = real
 
 
-def guided_expected(stack, gn, torch, steps: int) -> dict:
+def guided_expected(stack, gn, torch, steps: int, remat: bool = False) -> dict:
     """Launches of one batch-1 512^2 sketch-guided request of ``steps``
     DPM-Solver++ steps: each guided step an uncond forward and a cond
     forward with the backward (12 flash sites), each plain step one forward
-    at batch 2; the sketch's VAE encode and the decode."""
+    at batch 2; the sketch's VAE encode and the decode. With ``remat`` each
+    guided backward runs the forward of every block it reaches again
+    (``REMAT_FWD_SITES`` flash sites, the first ``REMAT_GN`` GroupNorms)."""
     from sketch2img_torch.pipelines.sketch_guided import num_guided_steps
 
     n_guided = num_guided_steps(steps)
     n_plain = steps - n_guided
     per_pass, _ = stack.gn_calls(gn, torch)
-    return {"flash_fwd": FWD_SITES * (2 * n_guided + n_plain),
+    again = n_guided if remat else 0
+    return {"flash_fwd": FWD_SITES * (2 * n_guided + n_plain) + REMAT_FWD_SITES * again,
             "flash_bwd_dq": BWD_SITES * n_guided, "flash_bwd_dkv": BWD_SITES * n_guided,
             **gn_launches(gn, [(per_pass["unet_b1"], 2 * n_guided),
+                               (per_pass["unet_b1"][:REMAT_GN], again),
                                (per_pass["unet_b2"], n_plain), (per_pass["vae_enc_b1"], 1),
                                (per_pass["vae_dec_b1"], 1)])}
 
@@ -1813,6 +1868,381 @@ def run_apps(stack, fa, gn, torch) -> dict:
             raise PhaseError(f"apps {name}: launch counts {launches} != expected {expected}")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 9: remat
+# ---------------------------------------------------------------------------
+
+
+def guided_inputs(pipe, torch, batch: int = 1, px: int = 512, seed: int = 1):
+    """Seeded inputs of one guided UNet pass at ``batch`` x ``px``^2: the
+    latent, t = 801, the prompt's context and an LGP target."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = px // 8
+    x = torch.randn(batch, 4, h, h, generator=gen, device="cuda")
+    target = torch.randn(batch, 4, h, h, generator=gen, device="cuda") * 0.2
+    t = torch.full((batch,), 801, dtype=torch.long, device="cuda")
+    _, ctx = pipe.encode_prompt(["a house"] * batch)
+    return x, t, ctx, target
+
+
+def calibration_rows(stack, torch) -> list:
+    """``core/memory.CALIBRATION_CASES`` measured on this card: one guided
+    step of the sampling call each (``measure_guided_gib``), printed as
+    calibration rows beside the committed row and the fitted estimate."""
+    from sketch2img_torch.core import memory
+    from sketch2img_torch.runtime import SketchGuidedPipeline
+
+    pipe = SketchGuidedPipeline(stack.comps)
+    committed = {(s, b, r): t for s, b, r, t in memory.CALIBRATION}
+    rows = []
+    for size, batch, remat in memory.CALIBRATION_CASES:
+        t0 = time.perf_counter()
+        try:
+            total = memory.measure_guided_gib(pipe, size, batch, remat)
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            log(f"  calibration case ({size}, {batch}, {remat}): out of memory")
+            continue
+        rows.append((size, batch, remat, round(total, 3)))
+        log(f"  calibration row ({size}, {batch}, {remat}, {total:.3f}),  # "
+            f"{time.perf_counter() - t0:.1f} s; committed {committed.get((size, batch, remat))},"
+            f" estimate {memory.estimate_guided_gib(batch, size, size, remat):.3f} GiB")
+    if rows:
+        bases, slopes = memory.fit_from_calibration(rows)
+        log(f"  fit of the measured rows: base {bases} slope {slopes} (GiB, GiB per latent"
+            f" megapixel); on {card_line()}, total memory {memory.device_hbm_gib():.2f} GiB")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_remat(stack, fa, gn, torch) -> dict:
+    """Remat against no remat in one guided pass and a 50-step request, the
+    calibration rows, and a request the calibration flags."""
+    import numpy as np
+
+    from sketch2img_torch.core import memory
+    from sketch2img_torch.pipelines.sketch_guided import num_guided_steps
+    from sketch2img_torch.runtime import SketchGuidedPipeline
+
+    comps = stack.comps
+    pipe = SketchGuidedPipeline(comps)
+    per_pass, _ = stack.gn_calls(gn, torch)
+    x, t, ctx, target = guided_inputs(pipe, torch)
+
+    def one_pass(remat):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_counts(fa, gn)
+        eps, g = guided_pass(comps, torch, x, t, ctx, target, remat=remat)
+        torch.cuda.synchronize()
+        return eps, g, counts(fa, gn), (torch.cuda.max_memory_allocated() - resident) / 2**30
+
+    for remat in (False, True):  # warm-up: cuDNN's plans
+        guided_pass(comps, torch, x, t, ctx, target, remat=remat)
+    e0, g0, c0, m0 = one_pass(False)
+    e1, g1, c1, m1 = one_pass(True)
+    want = {}
+    for remat in (False, True):
+        want[remat] = {"flash_fwd": FWD_SITES + (REMAT_FWD_SITES if remat else 0),
+                       "flash_bwd_dq": BWD_SITES, "flash_bwd_dkv": BWD_SITES,
+                       **gn_launches(gn, [(per_pass["unet_b1"], 1),
+                                          (per_pass["unet_b1"][:REMAT_GN], int(remat))])}
+    g_cos = float(torch.nn.functional.cosine_similarity(g0.flatten(), g1.flatten(), dim=0))
+    g_rel = float((g0 - g1).abs().max() / g0.abs().max())
+    log(f"  guided pass 512^2 B=1, remat on vs off: eps bit-identical {e0.equal(e1)}, gradient"
+        f" cosine {g_cos:.6f} (gate 0.98, the e2e phase's), max diff {g_rel:.3e} of max|grad|;"
+        f" peak memory above resident {m0:.3f} GiB off, {m1:.3f} GiB on;"
+        f" launches off {c0} (expected {want[False]}), on {c1} (expected {want[True]})")
+    if not e0.equal(e1) or g_cos < 0.98:
+        raise PhaseError("remat changes the guided pass's eps or gradient")
+    if c0 != want[False] or c1 != want[True]:
+        raise PhaseError(f"guided pass launches {c0} / {c1} != {want[False]} / {want[True]}")
+
+    sketch = sketch_image(np)
+
+    def request(steps, remat, count=False, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        if count:
+            reset_counts(fa, gn)
+        t0 = time.perf_counter()
+        img = pipe(kw.pop("prompt", "a sketch of a house"), num_inference_steps=steps,
+                   sketch_image=sketch, remat=remat, **{"seed": 1234, "width": 512,
+                                                         "height": 512, **kw})
+        torch.cuda.synchronize()
+        return (img, time.perf_counter() - t0, counts(fa, gn) if count else None,
+                (torch.cuda.max_memory_allocated() - resident) / 2**30)
+
+    request(2, True)  # warm-up
+    steps = 50
+    img0, s0, _, p0 = request(steps, False)
+    img1, s1, c_req, p1 = request(steps, True, count=True)
+    expected = guided_expected(stack, gn, torch, steps, remat=True)
+    n_guided = num_guided_steps(steps)
+    log(f"  sketch-guided 512x512 B=1 {steps} steps: remat=False {s0:.3f} s (peak {p0:.3f} GiB"
+        f" above resident), remat=True {s1:.3f} s (peak {p1:.3f} GiB): remat costs"
+        f" {s1 - s0:+.3f} s, {(s1 - s0) / n_guided * 1e3:+.2f} ms a guided step; images"
+        f" {image_diff(np, (np.clip(img1, 0, 1) * 255).astype(np.uint8), img0)[1]:.3f} uint8"
+        f" levels apart (mean); on {card_line()}")
+    log(f"  remat request launches {c_req} expected {expected}")
+    if c_req != expected:
+        raise PhaseError(f"remat request launches {c_req} != expected {expected}")
+    if img1.shape != (512, 512, 3) or not np.isfinite(img1).all():
+        raise PhaseError("remat request image is not a finite (512, 512, 3) image")
+
+    calibration_rows(stack, torch)
+
+    budget = memory.device_hbm_gib()
+    batch = next(b for b in range(1, 1025) if memory.choose_remat(b, 512, 512, budget_gib=budget))
+    seeds = list(range(1, batch + 1))
+    img, secs, _, peak = request(REMAT_STEPS, None, prompt=["a sketch of a house"] * batch,
+                                 seed=seeds)
+    log(f"  smallest 512^2 batch the calibration flags on {budget:.2f} GiB: {batch}"
+        f" (estimate without remat {memory.estimate_guided_gib(batch, 512, 512, False):.2f} GiB"
+        f" > {0.92 * budget:.2f}, with {memory.estimate_guided_gib(batch, 512, 512, True):.2f});"
+        f" {REMAT_STEPS}-step request with remat=None: last_remat {pipe.last_remat}, {secs:.2f} s,"
+        f" peak {peak:.2f} GiB above {torch.cuda.memory_allocated() / 2**30:.2f} resident,"
+        f" images {img.shape} finite {bool(np.isfinite(img).all())}")
+    if pipe.last_remat is not True:
+        raise PhaseError("remat=None did not choose remat at a batch the calibration flags")
+    if img.shape != (batch, 512, 512, 3) or not np.isfinite(img).all():
+        raise PhaseError("the flagged request's images are not finite")
+    del img
+    torch.cuda.empty_cache()
+    return c_req
+
+
+# ---------------------------------------------------------------------------
+# phase 10: dist
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic mode (cuDNN's deterministic algorithms) while
+    in force."""
+    import warnings
+
+    bench = torch.backends.cudnn.benchmark
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+            torch.backends.cudnn.benchmark = bench
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_train_steps(stack, torch, mesh) -> dict:
+    """One LGP step and one injection step at batch 2, 512^2, SGD, from
+    seeded fresh trainables and draw generators, through the data-parallel
+    code when ``mesh`` is given. -> loss and state of each."""
+    from sketch2img_torch.apps.train_attn_inject import injected_unet
+    from sketch2img_torch.models.lgp import LatentEdgePredictor, sync_batch_stats
+    from sketch2img_torch.models.unet import tap_channels
+    from sketch2img_torch.train.train_attn_inject import inject_train_step, mark_trainables
+    from sketch2img_torch.train.train_lgp import Frozen, lgp_train_step
+
+    comps, gan = stack.comps, stack.gan
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    batch = {"input_ids": torch.randint(0, 49406, (2, TRAIN_IDS), generator=gen, device="cuda"),
+             "pixels": torch.rand(2, 3, 512, 512, generator=gen, device="cuda") * 2 - 1}
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]), torch.device("cuda"):
+        torch.manual_seed(32)
+        lgp = LatentEdgePredictor(input_dim=tap_channels(comps.unet.config) + 4 + 36)
+    if mesh is not None:
+        sync_batch_stats(lgp, mesh.data_group)
+    opt = torch.optim.SGD(lgp.parameters(), lr=1e-2)
+    frozen = Frozen(comps.unet, comps.vae, comps.text_encoder, gan, comps.schedule)
+    lgp_loss = lgp_train_step(lgp, opt, frozen, batch, mesh=mesh, sketch_fixed_size=1024,
+                              generator=torch.Generator(device="cuda").manual_seed(33))
+    out = {"lgp_loss": lgp_loss, "lgp": {k: v.clone() for k, v in lgp.state_dict().items()}}
+    del lgp, opt
+    clip = stack.vit(seed=34).float()
+    unet = injected_unet(comps, clip.config.hidden_size, 35)
+    trainables = mark_trainables(unet, clip)
+    opt = torch.optim.SGD(trainables.values(), lr=1e-2)
+    out["inject_loss"] = inject_train_step(
+        unet, clip, opt, Frozen(None, comps.vae, comps.text_encoder, gan, comps.schedule), batch,
+        mesh=mesh, sketch_fixed_size=512,
+        generator=torch.Generator(device="cuda").manual_seed(36))
+    out["inject"] = {k: v.detach().clone() for k, v in trainables.items()}
+    return out
+
+
+def run_dist(stack, fa, gn, torch) -> dict:
+    """World size 1 over NCCL against no process group; then TP over two
+    processes on the card."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sketch2img_torch.parallel.mesh import initialize_distributed, make_mesh
+    from sketch2img_torch.runtime import SketchGuidedPipeline
+
+    comps = stack.comps
+    log(f"  devices: {torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}; data"
+        f" parallelism over more than one GPU cannot run on this machine")
+    t0 = time.perf_counter()
+    initialize_distributed("cuda", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                           world_size=1)
+    try:
+        mesh = make_mesh()
+        log(f"  process group: backend {dist.get_backend()}, world size"
+            f" {dist.get_world_size()}, {mesh} ({time.perf_counter() - t0:.2f} s)")
+        with deterministic(torch):
+            plain = dist_train_steps(stack, torch, None)
+            dp = dist_train_steps(stack, torch, mesh)
+        same = {"lgp_loss": bool(plain["lgp_loss"].equal(dp["lgp_loss"])),
+                "inject_loss": bool(plain["inject_loss"].equal(dp["inject_loss"])),
+                "lgp": all(plain["lgp"][k].equal(dp["lgp"][k]) for k in plain["lgp"]),
+                "inject": all(plain["inject"][k].equal(dp["inject"][k])
+                              for k in plain["inject"])}
+        log(f"  trainer steps (B=2, 512^2) through the data-parallel code at world size 1"
+            f" (NCCL) against no mesh, bit for bit: {same}; losses LGP"
+            f" {float(plain['lgp_loss']):.6f}, injection {float(plain['inject_loss']):.6f}")
+        if not all(same.values()):
+            raise PhaseError(f"data-parallel trainer steps differ at world size 1: {same}")
+        del plain, dp
+        sketch = sketch_image(np)
+        kw = dict(num_inference_steps=3, width=512, height=512, seed=[5, 6],
+                  sketch_image=[sketch, sketch[::-1].copy()])
+        with deterministic(torch):
+            img0 = SketchGuidedPipeline(comps)(["a house", "a tree"], **kw)
+            reset_counts(fa, gn)
+            img1 = SketchGuidedPipeline(comps, mesh=make_mesh())(["a house", "a tree"], **kw)
+            launches = counts(fa, gn)
+        log(f"  SketchGuidedPipeline(mesh=make_mesh()) against mesh=None, B=2 3 steps 512^2:"
+            f" bit-identical {bool(np.array_equal(img0, img1))}; launches {launches}")
+        if not np.array_equal(img0, img1):
+            raise PhaseError("the pipeline under a world-size-1 mesh differs from mesh=None")
+    finally:
+        dist.destroy_process_group()
+    run_tp_pair(stack, torch)
+    return launches
+
+
+def tp_recorded_heads(fa):
+    """Record the head count of every flash forward call (a wrapper around
+    the module's ``flash_forward``). -> the set it fills."""
+    heads, real = set(), fa.flash_forward
+
+    def recorder(q, *args, **kw):
+        heads.add(q.shape[1])
+        return real(q, *args, **kw)
+
+    fa.flash_forward = recorder
+    return heads
+
+
+def tp_worker(rank: str, init: str, out: str) -> int:
+    """One rank of the TP pair: full-width SD1.5 on seeded weights, its
+    UNet's attention sliced to this rank's heads, one guided pass on the
+    phase's seeded inputs; eps, gradient, launches and the flash calls'
+    head counts saved to ``out``."""
+    import torch
+
+    from sketch2img_torch.ops import flash_attention as fa
+    from sketch2img_torch.ops import groupnorm as gn
+    from sketch2img_torch.parallel.mesh import initialize_distributed, make_mesh
+    from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline
+
+    initialize_distributed("cuda", backend="gloo", init_method="file://" + init,
+                           rank=int(rank), world_size=TP_RANKS)
+    comps = SDComponents.random_init(seed=0, compute_dtype=torch.bfloat16, device="cuda")
+    comps.tokenizer = StandInTokenizer()
+    mesh = make_mesh(model_parallel=TP_RANKS)
+    pipe = SketchGuidedPipeline(comps, mesh=mesh)
+    local = sorted({m.heads for m in comps.unet.modules() if hasattr(m, "tp_size")})
+    x, t, ctx, target = guided_inputs(pipe, torch, seed=21)
+    guided_pass(comps, torch, x, t, ctx, target)  # warm-up
+    torch.cuda.synchronize()
+    heads = tp_recorded_heads(fa)
+    reset_counts(fa, gn)
+    t0 = time.perf_counter()
+    eps, g = guided_pass(comps, torch, x, t, ctx, target)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    torch.save({"eps": eps.cpu(), "grad": g.cpu(), "launches": counts(fa, gn),
+                "module_heads": local, "flash_heads": sorted(heads), "seconds": secs}, out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_tp_pair(stack, torch) -> None:
+    """Tensor parallelism at m = 2 as two processes sharing the card over
+    gloo (NCCL takes one rank a device): each rank's guided pass against the
+    one-process pass on the same weights and inputs (the e2e gates: eps
+    within 5e-2 of max|eps|, gradient cosine 0.98); flash launched at the
+    local heads, 15 / 12 / 12 times."""
+    import shutil
+
+    from sketch2img_torch.runtime import SketchGuidedPipeline
+
+    folder = os.path.join(SMOKE_DIR, "tp")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    init = os.path.join(folder, "rdzv")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+                               init, os.path.join(folder, f"rank{r}.pt")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(TP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log(out[-4000:])
+            raise PhaseError(f"TP rank {r} over gloo on the card failed (exit {p.returncode})")
+    pipe = SketchGuidedPipeline(stack.comps)
+    x, t, ctx, target = guided_inputs(pipe, torch, seed=21)
+    guided_pass(stack.comps, torch, x, t, ctx, target)  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eps, g = guided_pass(stack.comps, torch, x, t, ctx, target)
+    torch.cuda.synchronize()
+    log(f"  one process, all 8 heads: the same guided pass in {time.perf_counter() - t1:.3f} s")
+    want = {"flash_fwd": FWD_SITES, "flash_bwd_dq": BWD_SITES, "flash_bwd_dkv": BWD_SITES}
+    for r in range(TP_RANKS):
+        got = torch.load(os.path.join(folder, f"rank{r}.pt"), weights_only=False)
+        e_rel = float((got["eps"].cuda() - eps).abs().max() / eps.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(got["grad"].cuda().flatten(),
+                                                          g.flatten(), dim=0))
+        flash = {k: got["launches"][k] for k in want}
+        log(f"  TP rank {r} of {TP_RANKS} (gloo, the card shared): guided pass 512^2 B=1 in"
+            f" {got['seconds']:.3f} s; attention modules at {got['module_heads']} heads, flash"
+            f" forward calls at {got['flash_heads']} heads, launches {flash}; eps max err /"
+            f" max|eps| {e_rel:.3e} (tol 5e-2), gradient cosine {cos:.5f} (tol 0.98) against"
+            f" one process; {time.perf_counter() - t0:.1f} s for the pair")
+        if e_rel > 5e-2 or cos < 0.98:
+            raise PhaseError(f"TP rank {r}: eps or gradient disagree with one process")
+        if flash != want or got["flash_heads"] != [HEADS // TP_RANKS]:
+            raise PhaseError(f"TP rank {r}: launches {flash} at heads {got['flash_heads']}")
+
+
+
+# ---------------------------------------------------------------------------
+# phase 11: profile (only when asked)
+# ---------------------------------------------------------------------------
 
 def run_profile(stack, torch, steps: int = 4, inject_steps: int = 5) -> None:
     """Device time by kernel over one short request of each path and one

@@ -19,15 +19,16 @@ import time
 import numpy as np
 
 
-def build_pipeline(model_path: str, lgp_weights: str, **components_kw):
+def build_pipeline(model_path: str, lgp_weights: str, mesh=None, **components_kw):
     """``SDComponents.from_diffusers_dir(model_path, **components_kw)`` (bf16
     on the card unless ``compute_dtype``/``device`` say otherwise), then the
-    LGP from ``lgp_weights``, wrapped in a ``SketchGuidedPipeline``."""
+    LGP from ``lgp_weights``, wrapped in a ``SketchGuidedPipeline`` over
+    ``mesh`` (a ``parallel.make_mesh()`` mesh, or None for one device)."""
     from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline
 
     c = SDComponents.from_diffusers_dir(model_path, **components_kw)
     c.load_lgp_torch(lgp_weights)
-    return SketchGuidedPipeline(c)
+    return SketchGuidedPipeline(c, mesh=mesh)
 
 
 def inference(pipe, prompt, guidance, steps, width=512, height=512, seed=0,

@@ -1,6 +1,5 @@
 """CLIP-variant (attention-injection) generation — counterpart of
-``sketch2img_tpu/apps/clip_guided_inf.py`` (``ClipGuidedPipeline``), without
-the mesh.
+``sketch2img_tpu/apps/clip_guided_inf.py`` (``ClipGuidedPipeline``).
 
 The SD stack runs with the clip-injection UNet: the sketchpad goes through
 the CLIP ViT-L/14 vision encoder, every TransformerBlock attends over its
@@ -8,7 +7,10 @@ own tokens and the projected CLIP tokens, and the CFG pair carries the
 state [zeros; hidden] at the UI strength. The injected UNet shares the base
 UNet's weights (no copy); only the injection blocks are its own. When the
 components hold a safety checker it runs on every generation, as in
-``SketchGuidedPipeline``. ``main()`` is the command-line demo:
+``SketchGuidedPipeline``. With ``mesh`` (a ``parallel.make_mesh()`` mesh with
+a data axis only) it runs data-parallel as ``SketchGuidedPipeline`` does:
+rows sharded, a non-dividing batch padded in the per-image-seed mode,
+images gathered. ``main()`` is the command-line demo:
 
     python -m sketch2img_torch.apps.clip_guided_inf --model_path sd15/ \
         --attn_weights sketch_attn_model.pt --clip_weights sketch_encoder_model.pt \
@@ -26,10 +28,11 @@ import numpy as np
 import torch
 
 from sketch2img_torch.core.convert import clip_vision_from_jax, injection_from_jax, load_params_npz
+from sketch2img_torch.core.manifest import check_state_dict
 from sketch2img_torch.models.clip_vision import VIT_L14_CONFIG, CLIPVisionConfig, CLIPVisionEncoder
 from sketch2img_torch.models.safety_checker import clip_normalize
 from sketch2img_torch.ops.resize import resize_bicubic
-from sketch2img_torch.models.unet import UNet2DCondition, UNetConfig, make_sat
+from sketch2img_torch.models.unet import SD15_CONFIG, UNet2DCondition, UNetConfig, make_sat
 from sketch2img_torch.pipelines.attn_injected import cfg_injection_state, sample_attn_injected
 from sketch2img_torch.pipelines.text2img import latents_to_image
 from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline, _clean, _frozen
@@ -45,9 +48,16 @@ def _load_torch(path: str) -> StateDict:
 
 def load_attn_weights(path: str, config: UNetConfig) -> StateDict:
     """Injection weights as the state dict of ``unet.sat``: the reference's
-    ``sketch_attn_model.pt`` as it is, or a JAX package npz export converted."""
+    ``sketch_attn_model.pt`` as it is (held to its manifest for the SD1.5
+    clip variant), or a JAX package npz export converted."""
     if path.endswith(_TORCH_SUFFIXES):
-        return _load_torch(path)
+        sd = _load_torch(path)
+        base = dataclasses.replace(config, injection="none", remat=False,
+                                   injection_context_dim=SD15_CONFIG.injection_context_dim)
+        if (base == SD15_CONFIG and config.injection == "clip"
+                and config.injection_context_dim == VIT_L14_CONFIG.hidden_size):
+            check_state_dict("sat_sd15", sd, what=path)
+        return sd
     return injection_from_jax(load_params_npz(path), config)
 
 
@@ -82,10 +92,19 @@ class ClipGuidedPipeline:
     def __init__(self, model_path: Optional[str] = None, attn_weights: Optional[str] = None,
                  clip_weights: Optional[str] = None, *,
                  components: Optional[SDComponents] = None,
-                 clip_config: CLIPVisionConfig = VIT_L14_CONFIG):
+                 clip_config: CLIPVisionConfig = VIT_L14_CONFIG, mesh=None):
         """Build from a diffusers directory (``model_path``) or share loaded
         ``components``. Without ``attn_weights`` / ``clip_weights`` the
-        injection blocks and the CLIP encoder get random weights (seed 0)."""
+        injection blocks and the CLIP encoder get random weights (seed 0).
+        ``mesh``: data-parallel over its data axis; a model axis above 1 is
+        refused (the injection blocks would be replicated over head-sliced
+        base weights, a combination nothing checks)."""
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise ValueError(
+                "the injection route supports data-parallel meshes only: a model axis > 1 "
+                "would merge the replicated sketch_* injection params into Megatron-sharded "
+                "base UNet params (untested program). Use model_parallel=1, or serve the "
+                "injection route on its own data mesh.")
         self.c = components if components is not None else SDComponents.from_diffusers_dir(
             model_path)
         dev, dt = self.c.device, self.c.unet.dtype
@@ -105,10 +124,26 @@ class ClipGuidedPipeline:
         self.unet.load_state_dict(sd, strict=True, assign=True)
         self.unet = _frozen(self.unet, dev)
         if clip_weights:
-            clip.load_state_dict(load_clip_weights(clip_weights, clip_config.num_layers),
-                                 strict=True)
+            csd = load_clip_weights(clip_weights, clip_config.num_layers)
+            if clip_config == VIT_L14_CONFIG:
+                check_state_dict("clip_vision_l14", csd, what=clip_weights)
+            clip.load_state_dict(csd, strict=True)
         self.clip = _frozen(clip, dev).to(dt)
+        self.mesh = mesh
+        self._dp = 1
+        if mesh is not None:
+            from sketch2img_torch.parallel.mesh import shard_params
+
+            self._dp = mesh.shape["data"]
+            for m in (self.unet, self.clip, self.c.vae, self.c.text_encoder,
+                      self.c.safety_checker):
+                if m is not None:
+                    shard_params(mesh, m)
+        # the helper's noise, prompt encoding, padding, rows and gather serve
+        # this pipeline too; it shares the mesh without its own set-up (the
+        # weights were replicated above)
         self._helper = SketchGuidedPipeline(self.c)
+        self._helper.mesh, self._helper._dp = mesh, self._dp
         self.last_nsfw_flags: Optional[np.ndarray] = None
 
     @torch.no_grad()
@@ -134,24 +169,34 @@ class ClipGuidedPipeline:
             raise ValueError(f"got {len(spimg)} sketches for a batch of {batch}")
         if isinstance(strength, (list, tuple)) and len(strength) != batch:
             raise ValueError(f"got {len(strength)} strengths for a batch of {batch}")
+        helper = self._helper
+        pad, seed, spimg = helper._pad_for_mesh(batch, seed, spimg)
+        if pad and isinstance(strength, (list, tuple)):
+            strength = list(strength) + [0.0] * pad
+        batch_p = batch + pad
         f = self.c.vae_scale_factor
-        latents0, _ = self._helper._initial_noise(seed, batch, height // f, width // f, 0)
-        uncond, cond = self._helper.encode_prompt(prompt, negative_prompt)
+        latents0, _ = helper._initial_noise(seed, batch_p, height // f, width // f, 0)
+        uncond, cond = helper._shard_pair(*helper.encode_prompt(prompt, negative_prompt), pad)
+        latents0 = helper._shard_batch(latents0)
+        local = latents0.shape[0]
+        if isinstance(strength, (list, tuple)):
+            strength = helper._shard_batch(list(strength))
         if spimg is not None:
+            if isinstance(spimg, (list, tuple)):
+                spimg = helper._shard_batch(list(spimg))
             hidden = self.encode_sketch(spimg)
-            state = cfg_injection_state(hidden.expand(batch, -1, -1))
+            state = cfg_injection_state(hidden.expand(local, -1, -1))
             scale = torch.as_tensor(strength, dtype=torch.float32)
         else:
-            state = torch.zeros(2 * batch, self.clip_config.num_tokens,
+            state = torch.zeros(2 * local, self.clip_config.num_tokens,
                                 self.clip_config.hidden_size, device=self.c.device,
                                 dtype=self.unet.dtype)
             scale = 0.0
         latents = sample_attn_injected(self.unet, self.c.schedule, num_inference_steps,
                                        latents0, torch.cat([uncond, cond]), state, scale,
                                        guidance_scale)
-        img = latents_to_image(self.c.vae, latents)
-        img, self.last_nsfw_flags = self.c.run_safety_checker(img)
-        img = img.permute(0, 2, 3, 1).float().cpu().numpy()
+        img = helper._finish(latents_to_image(self.c.vae, latents), batch)
+        self.last_nsfw_flags = helper.last_nsfw_flags
         return img[0] if isinstance(prompt, str) else img
 
 

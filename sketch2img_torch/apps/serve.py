@@ -1,5 +1,6 @@
-"""HTTP serving of sketch-guided generation on one GPU — counterpart of
-``sketch2img_tpu/apps/serve.py``, with the same API (stdlib http.server):
+"""HTTP serving of sketch-guided generation — counterpart of
+``sketch2img_tpu/apps/serve.py``, with the same API (stdlib http.server), on
+one GPU or, under ``torchrun``, on several:
 
   GET  /healthz              -> {"status": "ok", "warm": true/false}
   GET  /metrics              -> request/image/error counts, batch-size
@@ -49,11 +50,22 @@ Behaviour:
   * graceful shutdown: SIGTERM/SIGINT stop accepting connections and let
     in-flight generations finish.
 
+Several GPUs: one process per GPU under ``torchrun``, with
+``--data_parallel`` x ``--model_parallel`` equal to the job's world size.
+Rank 0 owns the HTTP server; each pipeline call it makes (warm-up
+included) is broadcast to the other ranks (``broadcast_object_list`` of the
+call's arguments over a gloo group), which run the same call on their own
+rows of the batch (data axis) or their own attention heads (model axis);
+the pipeline gathers the images, so rank 0 answers with the whole batch.
+The injection route is data-parallel only: ``--inject_attn_weights`` with
+``--model_parallel`` above 1 is refused at start-up, as in the JAX package.
+
 Usage:
   python -m sketch2img_torch.apps.serve --model_path /path/to/sd15 \\
       --lgp_path edge_predictor.pt [--host 0.0.0.0] [--port 8000] \\
       [--warmup 512x512x50] [--batch_window_ms 20] \\
       [--inject_attn_weights sketch_attn_model.pt]
+  torchrun --nproc_per_node 4 -m sketch2img_torch.apps.serve ... --data_parallel 4
 """
 
 from __future__ import annotations
@@ -61,8 +73,10 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import datetime
 import io
 import json
+import os
 import queue
 import threading
 import time
@@ -390,7 +404,7 @@ class GenerateHandler(BaseHTTPRequestHandler):
                 req["seed"] = list(map(int, req["seed"]))
             else:
                 # a scalar-seed batch must divide the pipeline's
-                # data-parallel width (1 for the single-GPU pipelines):
+                # data-parallel width (its mesh's data axis, 1 without one):
                 # surface it as a client error, the fix (seed=[...]) is
                 # client-side
                 if req.get("mode") == "inject":
@@ -684,24 +698,113 @@ def parse_args(argv=None):
     ap.add_argument("--inject_clip_weights", default=None,
                     help="sketch_encoder_model.pt or .npz for mode=inject")
     ap.add_argument("--data_parallel", type=int, default=1,
-                    help="must be 1: this server runs on one GPU")
+                    help="shard request batches over this many GPUs "
+                         "(data mesh axis; one torchrun process each)")
     ap.add_argument("--model_parallel", type=int, default=1,
-                    help="must be 1: this server runs on one GPU")
-    args = ap.parse_args(argv)
-    if args.data_parallel * args.model_parallel > 1:
-        ap.exit(2, "serve: --data_parallel and --model_parallel above 1 need "
-                   "multi-GPU serving, which comes with the port's distribution "
-                   "work (torch.distributed, not ported yet); this server runs "
-                   "on one GPU\n")
-    return args
+                    help="Megatron-shard UNet attention over this many "
+                         "GPUs (model mesh axis; per-request latency)")
+    return ap.parse_args(argv)
+
+
+def check_parallel_args(args, world_size: int, local_world_size: int,
+                        device_count: int) -> None:
+    """Exit with a message unless the job can run the asked mesh: one
+    process per GPU (``--data_parallel`` x ``--model_parallel`` = the world
+    size), a GPU for each process of a host, and no injection route under
+    tensor parallelism."""
+    n = args.data_parallel * args.model_parallel
+    if n != world_size:
+        raise SystemExit(
+            f"--data_parallel x --model_parallel = {n} needs {n} processes, one per GPU "
+            f"(torchrun --nproc_per_node {n} -m sketch2img_torch.apps.serve ...); this job "
+            f"has {world_size}")
+    if n > 1 and device_count < local_world_size:
+        raise SystemExit(
+            f"--data_parallel x --model_parallel = {n} needs {local_world_size} devices "
+            f"on this host, found {device_count}")
+    if args.inject_attn_weights and args.model_parallel > 1:
+        # refuse loudly at startup: the injection route shards over data
+        # only (ClipGuidedPipeline refuses a model axis)
+        raise SystemExit(
+            "--inject_attn_weights cannot be combined with "
+            "--model_parallel > 1: the injection route is data-parallel "
+            "only. Use --data_parallel for multi-GPU injection serving.")
+
+
+class Leader:
+    """Rank 0's side of a pipeline under a mesh: each call is broadcast to
+    the follower ranks (``follow``) over ``channel`` before it runs here;
+    every other attribute is the pipeline's. A callback stays on rank 0: the
+    followers get a no-op one, so every rank gathers the callback's
+    latents."""
+
+    def __init__(self, pipe, kind: str, channel):
+        self.pipe, self.kind, self.channel = pipe, kind, channel
+
+    def __call__(self, *args, **kwargs):
+        from sketch2img_torch.parallel.mesh import broadcast_object
+
+        sent = {k: v for k, v in kwargs.items() if k != "callback"}
+        broadcast_object((self.kind, args, sent, kwargs.get("callback") is not None),
+                         self.channel)
+        return self.pipe(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+
+def follow(pipes: dict, channel, log=print) -> int:
+    """A follower rank's loop: run each call rank 0 broadcasts on the
+    pipeline of its kind until rank 0 broadcasts None. A call that raises
+    here raised on rank 0 too (the same arguments), which answers the
+    client. -> the calls run."""
+    from sketch2img_torch.parallel.mesh import broadcast_object
+
+    n = 0
+    while True:
+        msg = broadcast_object(None, channel)
+        if msg is None:
+            return n
+        kind, args, kwargs, has_callback = msg
+        if has_callback:
+            kwargs["callback"] = lambda i, t, latents: None
+        try:
+            pipes[kind](*args, **kwargs)
+        except Exception as e:  # the client gets rank 0's error
+            log(f"follower: {kind} call failed: {e}")
+        n += 1
+
+
+def make_channel():
+    """The gloo group that carries the pipeline calls from rank 0: it waits
+    as long as the server idles (NCCL and the default timeout would end the
+    job after minutes without a request)."""
+    import torch.distributed as dist
+
+    return dist.new_group(backend="gloo", timeout=datetime.timedelta(days=365))
 
 
 def main(argv=None):
     args = parse_args(argv)
+    import torch
+
+    from sketch2img_torch.parallel.mesh import initialize_distributed, world
+
+    if args.data_parallel * args.model_parallel > 1:
+        initialize_distributed("cuda")  # the torchrun environment
+    rank, size = world()
+    check_parallel_args(args, size, int(os.environ.get("LOCAL_WORLD_SIZE", size)),
+                        torch.cuda.device_count())
+    mesh = channel = None
+    if size > 1:
+        from sketch2img_torch.parallel import make_mesh
+
+        mesh = make_mesh(model_parallel=args.model_parallel)
+        channel = make_channel()
 
     from sketch2img_torch.apps.app import build_pipeline
 
-    pipe = build_pipeline(args.model_path, args.lgp_path)
+    pipe = build_pipeline(args.model_path, args.lgp_path, mesh=mesh)
     inject_pipe = None
     if args.inject_attn_weights:
         from sketch2img_torch.apps.clip_guided_inf import ClipGuidedPipeline
@@ -709,7 +812,25 @@ def main(argv=None):
         inject_pipe = ClipGuidedPipeline(
             attn_weights=args.inject_attn_weights,
             clip_weights=args.inject_clip_weights,
-            components=pipe.c)
+            components=pipe.c, mesh=mesh)
+    if mesh is not None:
+        if rank != 0:
+            follow({"sketch": pipe, "inject": inject_pipe}, channel)
+            return
+        pipe = Leader(pipe, "sketch", channel)
+        inject_pipe = (Leader(inject_pipe, "inject", channel)
+                       if inject_pipe is not None else None)
+    try:
+        serve(args, pipe, inject_pipe)
+    finally:
+        if mesh is not None:  # release the followers
+            from sketch2img_torch.parallel.mesh import broadcast_object
+
+            broadcast_object(None, channel)
+
+
+def serve(args, pipe, inject_pipe) -> None:
+    """Build the server, warm it up, serve until SIGTERM/SIGINT."""
     server = make_server(pipe, args.host, args.port,
                          batch_window_ms=args.batch_window_ms,
                          max_batch=args.max_batch,

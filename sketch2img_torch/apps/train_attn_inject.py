@@ -12,8 +12,11 @@ once per image), ``checkpoint_every``, resume and checkpoint-on-signal;
 ``sketch_attn_model.npz`` and ``sketch_encoder_model.npz`` (the JAX
 package's npz exports) in ``output_dir`` at the end and, with
 ``save_torch``, ``sketch_attn_model.pt`` and ``sketch_encoder_model.pt``.
-``main()`` is the command line. Like the JAX app, it reads neither
-``monitor.wandb_id`` nor ``monitor.huggingface_repo``.
+``main()`` is the command line; under ``torchrun`` it trains data-parallel
+over every rank (``mesh``: ``batch_size`` is the global batch, the
+gradients are averaged over the ranks, rank 0 writes; ``train/loop.py``).
+Like the JAX app, it reads neither ``monitor.wandb_id`` nor
+``monitor.huggingface_repo``.
 """
 
 from __future__ import annotations
@@ -66,13 +69,16 @@ def injected_unet(components, clip_hidden: int, seed: int) -> UNet2DCondition:
 def train_attn_inject(config, components, gan, clip_vision: Optional[CLIPVisionEncoder] = None,
                       *, resume: Optional[str] = None, max_steps: Optional[int] = None,
                       sketch_fixed_size: int = 512, save_torch: bool = False,
-                      device: Union[str, torch.device] = "cuda", log=print) -> loop.TrainResult:
+                      device: Union[str, torch.device] = "cuda", mesh=None,
+                      log=print) -> loop.TrainResult:
     """Train the injection blocks and ``clip_vision`` (moved to fp32 on
     ``device``; None: a ViT-L/14 from seed 0) for ``train_epochs`` epochs or
     ``max_steps`` steps; the generator sees the images at
     ``sketch_fixed_size``^2. ``components``: ``runtime.SDComponents`` with a
     tokenizer, on ``device``; ``gan``: the anime2sketch generator there.
-    -> ``TrainResult`` with ``modules`` "unet", "clip", "optimizer"."""
+    ``mesh``: a ``parallel.make_mesh()`` mesh to train data-parallel over
+    (every rank calls this with the same arguments). -> ``TrainResult``
+    with ``modules`` "unet", "clip", "optimizer"."""
     cfg = loop.as_config(config)
     c = components
     dev = loop.components_device(c, device)
@@ -83,8 +89,13 @@ def train_attn_inject(config, components, gan, clip_vision: Optional[CLIPVisionE
             clip_vision = CLIPVisionEncoder(VIT_L14_CONFIG)
     clip = clip_vision.to(dev, torch.float32)
     unet = injected_unet(c, clip.config.hidden_size, cfg.seed)
+    if mesh is not None:
+        from sketch2img_torch.parallel.mesh import shard_params
+
+        for m in (unet, clip, c.vae, c.text_encoder, gan):
+            shard_params(mesh, m)
     trainables = mark_trainables(unet, clip)
-    data = loop.Data(cfg, c.tokenizer, allow_arb=False)
+    data = loop.Data(cfg, c.tokenizer, allow_arb=False, mesh=mesh)
     frozen = Frozen(None, c.vae, c.text_encoder, gan, c.schedule)
 
     max_train_steps = cfg.train_epochs * len(data)
@@ -105,8 +116,8 @@ def train_attn_inject(config, components, gan, clip_vision: Optional[CLIPVisionE
     out_dir = cfg.get_path("output_dir", ".")
 
     def step(batch):
-        return inject_train_step(unet, clip, optimizer, frozen, batch, cached_latents=cache,
-                                 generator=generator, **sketch_kw)
+        return inject_train_step(unet, clip, optimizer, frozen, batch, mesh=mesh,
+                                 cached_latents=cache, generator=generator, **sketch_kw)
 
     def state(global_step):
         return {"step": global_step, "sat": unet.sat.state_dict(), "clip": clip.state_dict(),
@@ -136,7 +147,7 @@ def train_attn_inject(config, components, gan, clip_vision: Optional[CLIPVisionE
     result = loop.run(cfg, data, step=step, state=state, load_state=load_state, device=dev,
                       ckpt_dir=cfg.get_path("checkpoint_dir", "checkpoints/attn_inject"),
                       resume=resume, max_steps=max_steps, max_train_steps=max_train_steps,
-                      on_end=on_end, log=log)
+                      on_end=on_end, mesh=mesh, log=log)
     result.modules.update(unet=unet, clip=clip, optimizer=optimizer)
     return result
 
@@ -160,6 +171,7 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
     config = load_config(args.config)
+    mesh = loop.distributed_mesh()
     components = SDComponents.from_diffusers_dir(config.model_path)
     gan = load_netg(args.netg)
     clip = None
@@ -169,7 +181,7 @@ def main(argv=None) -> None:
         clip.load_state_dict(load_clip_weights(args.clip_vision, VIT_L14_CONFIG.num_layers),
                              strict=True, assign=True)
     train_attn_inject(config, components, gan, clip, resume=args.resume,
-                      save_torch=args.save_torch)
+                      save_torch=args.save_torch, mesh=mesh)
     print("done")
 
 

@@ -10,10 +10,16 @@ constant LR after 150 warm-up steps, ``checkpoint_every``, resume, the
 ``edge_predictor.npz`` in ``output_dir`` (the JAX package's npz export,
 ``{"params", "batch_stats"}``) and, with ``save_torch``,
 ``edge_predictor.pt``. ``main()`` is the command line: it loads the SD1.x
-directory of ``model_path`` and ``netG.pth`` and calls it.
+directory of ``model_path`` and ``netG.pth`` and calls it; under ``torchrun``
+it trains data-parallel over every rank (``mesh``: ``batch_size`` is the
+global batch, the BatchNorm statistics are the global batch's, rank 0
+writes; ``train/loop.py``).
 
-wandb logging and the hub push need the network and are not ported; a
-config that asks for them raises ``NotImplementedError``.
+As the JAX app does, ``monitor.wandb_id`` logs loss, learning rate and
+images/s to wandb from rank 0 (``import wandb`` raises where it is not
+installed), and ``monitor.huggingface_repo`` pushes each epoch's export to
+the hub (``utils/hub.push_file``: a failure, such as no network, is printed
+and training goes on).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from sketch2img_torch.core.config import load_config
 from sketch2img_torch.core.convert import lgp_to_jax
 from sketch2img_torch.core.export import lgp_state, save_torch_state
 from sketch2img_torch.models.anime2sketch import load_netg
-from sketch2img_torch.models.lgp import LatentEdgePredictor
+from sketch2img_torch.models.lgp import LatentEdgePredictor, sync_batch_stats
 from sketch2img_torch.models.unet import tap_channels
 from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline
 from sketch2img_torch.train import loop
@@ -36,25 +42,28 @@ from sketch2img_torch.train.checkpoint import export_params_npz
 from sketch2img_torch.train.optim import make_lr_schedule, make_optimizer
 from sketch2img_torch.train.sampling import TrainingSampler
 from sketch2img_torch.train.train_lgp import Frozen, generate_sketch, lgp_train_step
+from sketch2img_torch.utils.hub import push_file
 
 
 def train_lgp(config, components, gan, *, resume: Optional[str] = None,
               max_steps: Optional[int] = None, network_weights: Optional[str] = None,
               sketch_fixed_size: int = 1024, save_torch: bool = False,
-              device: Union[str, torch.device] = "cuda", log=print) -> loop.TrainResult:
+              device: Union[str, torch.device] = "cuda", mesh=None,
+              log=print) -> loop.TrainResult:
     """Train an LGP (seeded from ``config.seed``, or ``network_weights``, an
     ``edge_predictor.pt``) for ``train_epochs`` epochs or ``max_steps``
     steps; the generator sees the images at ``sketch_fixed_size``^2.
     ``components``: ``runtime.SDComponents`` with a tokenizer, on
     ``device``; ``gan``: the anime2sketch generator there. ``resume``: a
-    checkpoint file or directory. -> ``TrainResult``; the LGP's weights are
-    in the last checkpoint and in ``output_dir/edge_predictor.npz`` (and
-    ``.pt`` with ``save_torch``)."""
+    checkpoint file or directory. ``mesh``: a ``parallel.make_mesh()``
+    mesh to train data-parallel over (every rank calls this with the same
+    arguments). -> ``TrainResult``; the LGP's weights are in the last
+    checkpoint and in ``output_dir/edge_predictor.npz`` (and ``.pt`` with
+    ``save_torch``)."""
     cfg = loop.as_config(config)
-    loop.refuse_network_options(cfg)
     c = components
     dev = loop.components_device(c, device)
-    data = loop.Data(cfg, c.tokenizer)
+    data = loop.Data(cfg, c.tokenizer, mesh=mesh)
     devices = [dev] if dev.type == "cuda" else []
     with torch.random.fork_rng(devices=devices), torch.device(dev):
         torch.manual_seed(cfg.seed)
@@ -63,6 +72,13 @@ def train_lgp(config, components, gan, *, resume: Optional[str] = None,
         lgp.load_state_dict(torch.load(network_weights, map_location=dev, weights_only=True),
                             strict=True)
     frozen = Frozen(c.unet, c.vae, c.text_encoder, gan, c.schedule)
+    if mesh is not None:
+        from sketch2img_torch.parallel.mesh import shard_params
+
+        for m in (lgp, c.unet, c.vae, c.text_encoder, gan):
+            shard_params(mesh, m)
+        sync_batch_stats(lgp, mesh.data_group)
+    lead = loop.is_lead(mesh)
 
     max_train_steps = cfg.train_epochs * len(data)
     lr = make_lr_schedule("constant_with_warmup", cfg.optimizer.params["lr"], loop.WARMUP_STEPS,
@@ -86,7 +102,7 @@ def train_lgp(config, components, gan, *, resume: Optional[str] = None,
     out_dir = cfg.get_path("output_dir", ".")
 
     def step(batch):
-        return lgp_train_step(lgp, optimizer, frozen, batch, cached_latents=cache,
+        return lgp_train_step(lgp, optimizer, frozen, batch, mesh=mesh, cached_latents=cache,
                               generator=generator, sketch_fixed_size=sketch_fixed_size)
 
     def state(global_step):
@@ -112,12 +128,27 @@ def train_lgp(config, components, gan, *, resume: Optional[str] = None,
         if save_torch:
             paths.append(os.path.join(out_dir, "edge_predictor.pt"))
             save_torch_state(paths[1], lgp_state(lgp))
+        repo = cfg.get_path("monitor.huggingface_repo", "")
+        if repo:  # per-epoch publish; a failure is printed and training goes on
+            for path in paths:
+                push_file(repo, path, token=cfg.get_path("monitor.huggingface_token"),
+                          commit_message=f"add/update model: epoch {epoch}")
         return paths
+
+    monitor = None
+    if cfg.get_path("monitor.wandb_id", "") and lead:
+        import wandb
+
+        wandb.init(project=cfg.monitor.wandb_id, reinit=False)
+
+        def monitor(global_step, loss, images_per_sec):
+            wandb.log({"loss": loss, "lr": float(lr(global_step)),
+                       "images_per_sec": images_per_sec}, step=global_step)
 
     result = loop.run(cfg, data, step=step, state=state, load_state=load_state, device=dev,
                       ckpt_dir=cfg.get_path("checkpoint_dir", "checkpoints/lgp"), resume=resume,
                       max_steps=max_steps, max_train_steps=max_train_steps, on_step=on_step,
-                      on_epoch=on_epoch, log=log)
+                      on_epoch=on_epoch, monitor=monitor, mesh=mesh, log=log)
     result.modules.update(lgp=lgp, optimizer=optimizer)
     return result
 
@@ -140,11 +171,11 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
     config = load_config(args.config)
-    loop.refuse_network_options(config)
+    mesh = loop.distributed_mesh()
     components = SDComponents.from_diffusers_dir(config.model_path)
     gan = load_netg(args.netg)
     train_lgp(config, components, gan, resume=args.resume, network_weights=args.network_weights,
-              save_torch=args.save_torch)
+              save_torch=args.save_torch, mesh=mesh)
     print("done")
 
 

@@ -1,7 +1,14 @@
-"""Host-side data loader: shuffled epochs and background prefetch — a copy
-of ``sketch2img_tpu/data/loader.py`` (the port imports nothing of the JAX
-package) for one process: the per-process sharding of the JAX package's
-loader waits for the port's distributed trainers.
+"""Host-side data loader: shuffled epochs, per-process sharding and
+background prefetch — a copy of ``sketch2img_tpu/data/loader.py`` (the port
+imports nothing of the JAX package).
+
+Per-process sharding takes (process_index, process_count) the way a per-rank
+DistributedSampler would: every process shuffles the same epoch permutation
+and keeps every process_count-th index from its own offset, so batch b of
+all processes together holds the examples of a one-process batch b of
+process_count x batch_size, interleaved. Every process runs ``len(self)``
+batches an epoch (the JAX copy counts each process's own indices, which can
+differ by one between processes and leave a collective waiting).
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ class Loader:
         seed: int = 0,
         drop_last: bool = True,
         pad_to: Optional[int] = None,
+        process_index: int = 0,
+        process_count: int = 1,
         prefetch: int = 2,
     ):
         self.dataset = dataset
@@ -32,6 +41,8 @@ class Loader:
         self.seed = seed
         self.drop_last = drop_last
         self.pad_to = pad_to
+        self.process_index = process_index
+        self.process_count = process_count
         self.prefetch = prefetch
         self._epoch = 0
         self._skip = 0
@@ -48,7 +59,7 @@ class Loader:
         self._skip = int(n)
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.process_count
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _indices(self) -> np.ndarray:
@@ -58,13 +69,13 @@ class Loader:
             perm = list(idx)
             rng.shuffle(perm)
             idx = np.asarray(perm)
-        return idx
+        return idx[self.process_index :: self.process_count]
 
     def __iter__(self) -> Iterator[dict]:
         idx = self._indices()
         self._epoch += 1
         skip, self._skip = self._skip, 0  # one-shot (resume positioning)
-        n_batches = len(idx) // self.batch_size if self.drop_last else -(-len(idx) // self.batch_size)
+        n_batches = len(self)
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         _SENTINEL = object()

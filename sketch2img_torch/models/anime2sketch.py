@@ -100,11 +100,16 @@ def strip_module_prefix(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def load_netg(path: str, num_downs: int = 8, ngf: int = 64,
               device: Union[str, torch.device] = "cuda") -> UnetGenerator:
     """The published ``netG.pth``, loaded strictly into a frozen fp32
-    generator on ``device``."""
+    generator on ``device`` (at the published size, held to its manifest
+    first, with or without DataParallel's ``module.``)."""
+    from sketch2img_torch.core.manifest import check_state_dict
     from sketch2img_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    if (num_downs, ngf) == (8, 64):
+        check_state_dict("netG", sd, what=path, strip_prefix="module.")
     gan = create_anime2sketch(num_downs, ngf)
-    gan.load_state_dict(strip_module_prefix(sd.get("state_dict", sd)), strict=True)
+    gan.load_state_dict(strip_module_prefix(sd), strict=True)
     return gan.to(dev).eval().requires_grad_(False)

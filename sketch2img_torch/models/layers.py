@@ -112,7 +112,15 @@ class Upsample(nn.Module):
 
 class CrossAttention(nn.Module):
     """q from hidden states, k/v from ``context`` (or the hidden states):
-    ``to_q``/``to_k``/``to_v`` without bias, ``to_out.0`` with bias."""
+    ``to_q``/``to_k``/``to_v`` without bias, ``to_out.0`` with bias.
+
+    ``tp_size`` > 1 (set by ``parallel.shard_params_tp``, which slices the
+    projections to this rank's heads): the inputs pass ``copy_to_model``,
+    ``to_out`` runs its product without the bias, the partial sums are
+    all-reduced over the model group (``reduce_from_model``) and the bias
+    is added once."""
+
+    tp_size = 1
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None):
@@ -126,9 +134,20 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, kv_len: Optional[int] = None) -> torch.Tensor:
+        if self.tp_size > 1:
+            from sketch2img_torch.ops.attention import tensor_parallel_group
+            from sketch2img_torch.parallel.tp import copy_to_model, reduce_from_model
+
+            group = tensor_parallel_group(self.tp_size)
+            x = copy_to_model(x, group)
+            if context is not None:
+                context = copy_to_model(context, group)
         ctx = x if context is None else context
         out = multi_head_attention(self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads,
                                    mask=mask, kv_len=kv_len)
+        if self.tp_size > 1:
+            proj = self.to_out[0]
+            return reduce_from_model(F.linear(out, proj.weight), group) + proj.bias
         return self.to_out[0](out)
 
 

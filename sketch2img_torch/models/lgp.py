@@ -34,19 +34,47 @@ class BatchNorm(nn.BatchNorm1d):
     ``running_var`` (``nn.BatchNorm1d`` feeds the unbiased one), momentum
     0.1 here = 0.9 there. Statistics in fp32, in two passes (flax takes
     E[x^2] - E[x]^2; the two agree to fp32 rounding). Eval mode and the
-    state dict are ``nn.BatchNorm1d``'s."""
+    state dict are ``nn.BatchNorm1d``'s.
+
+    ``process_group`` (set by ``sync_batch_stats``): the data-parallel
+    group whose ranks each hold a shard of the batch. Both passes' sums are
+    then all-reduced over it (differentiably), so the statistics, and the
+    running ones, are the whole batch's, as JAX's jitted step computes them
+    over the sharded batch."""
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        from sketch2img_torch.parallel.mesh import all_reduce_sum
+
         xf = x.float()
-        var, mean = torch.var_mean(xf, dim=0, correction=0)
+        n = xf.shape[0]
+        s1 = xf.sum(dim=0)
+        if self.process_group is not None:
+            s1 = all_reduce_sum(s1, self.process_group)
+            n *= torch.distributed.get_world_size(self.process_group)
+        mean = s1 / n
+        s2 = ((xf - mean) ** 2).sum(dim=0)
+        if self.process_group is not None:
+            s2 = all_reduce_sum(s2, self.process_group)
+        var = s2 / n
         with torch.no_grad():
             self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
             self.num_batches_tracked.add_(1)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(x.dtype)
+
+
+def sync_batch_stats(module: nn.Module, group) -> nn.Module:
+    """Take every train-mode ``BatchNorm`` of ``module`` over the whole batch
+    of the data-parallel ``group`` (None: the local batch). -> ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = group
+    return module
 
 
 class LatentEdgePredictor(nn.Module):

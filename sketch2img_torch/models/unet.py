@@ -8,6 +8,14 @@ with ``load_state_dict(strict=True)``. Layout is NCHW. ``capture_taps=True``
 returns the nine tapped activations (fp32) in ``TAP_NAMES`` order, the LGP's
 channel-concat order.
 
+Rematerialisation (``UNetConfig.remat``, or ``forward(..., remat=True)``; the
+JAX package's ``nn.remat``): while autograd records, every ResnetBlock and
+SpatialTransformer runs under ``torch.utils.checkpoint`` (non-reentrant), so
+the backward keeps only the blocks' inputs and runs each block's forward
+again before its gradient — the kernels inside it (GroupNorm, the flash
+forward) launch a second time. The taps are taken between blocks, outside
+the recomputed regions, so recomputation never records a tap twice.
+
 Attention injection (``UNetConfig.injection`` "clip" or "sketch", the
 reference's SatMixin): each TransformerBlock gets an injection block between
 its self- and cross-attention, fed one state per block through
@@ -29,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from sketch2img_torch.models.layers import (
     CrossAttention,
@@ -55,6 +64,8 @@ class UNetConfig:
     # "none" | "sketch" (residual-KV) | "clip" (CLIP-token concat self-attn)
     injection: str = "none"
     injection_context_dim: int = 1024  # CLIP ViT-L/14 hidden (clip variant)
+    # recompute the resnet/transformer activations in the backward
+    remat: bool = False
 
 
 SD15_CONFIG = UNetConfig()
@@ -245,20 +256,29 @@ class UNet2DCondition(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
                 *, capture_taps: bool = False,
                 injection_states: Optional[Sequence[torch.Tensor]] = None,
-                injection_scale=1.0):
+                injection_scale=1.0, remat: Optional[bool] = None):
         """``injection_states``: one (B, S, C) tensor per TransformerBlock
         (the clip variant shares one CLIP state across all); None runs no
-        injection. ``injection_scale``: a float or a (B, 1, 1) tensor."""
+        injection. ``injection_scale``: a float or a (B, 1, 1) tensor.
+        ``remat``: recompute the blocks in the backward (None: the config's
+        ``remat``); it acts only while autograd records."""
         h, temb, context = self._stem(sample, timesteps, context)
         inj = self._injections(injection_states, injection_scale)
         taps: Dict[str, torch.Tensor] = {}
+        remat = self.config.remat if remat is None else remat
+        if remat and torch.is_grad_enabled():
+            def run(block, *args):
+                return checkpoint(block, *args, use_reentrant=False)
+        else:
+            def run(block, *args):
+                return block(*args)
 
         stack = [h]
         for i, blk in enumerate(self.down_blocks):
             for j, resnet in enumerate(blk.resnets):
-                h = resnet(h, temb)
+                h = run(resnet, h, temb)
                 if hasattr(blk, "attentions"):
-                    h = blk.attentions[j](h, context, next(inj))
+                    h = run(blk.attentions[j], h, context, next(inj))
                 stack.append(h)
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
@@ -267,21 +287,21 @@ class UNet2DCondition(nn.Module):
                 taps[f"down_{i}"] = h.float()
 
         mid = self.mid_block
-        h = mid.resnets[0](h, temb)
+        h = run(mid.resnets[0], h, temb)
         if capture_taps:
             taps["mid_res_0"] = h.float()
-        h = mid.attentions[0](h, context, next(inj))
+        h = run(mid.attentions[0], h, context, next(inj))
         if capture_taps:
             taps["mid_attn"] = h.float()
-        h = mid.resnets[1](h, temb)
+        h = run(mid.resnets[1], h, temb)
         if capture_taps:
             taps["mid_res_1"] = h.float()
 
         for i, blk in enumerate(self.up_blocks):
             for j, resnet in enumerate(blk.resnets):
-                h = resnet(torch.cat([h, stack.pop()], dim=1), temb)
+                h = run(resnet, torch.cat([h, stack.pop()], dim=1), temb)
                 if hasattr(blk, "attentions"):
-                    h = blk.attentions[j](h, context, next(inj))
+                    h = run(blk.attentions[j], h, context, next(inj))
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
             if capture_taps and i < 3:

@@ -8,6 +8,13 @@ tensor launches them, a CPU tensor takes their plain version. Every other
 site (cross-attention over 77 text tokens, the 8^2 mid attention, the CLIP
 text encoder's causal attention, the VAE's single-head attention) runs the
 plain path: matmul, fp32 softmax, matmul.
+
+Tensor parallelism (``parallel/tp.py``): ``set_tensor_parallel_context(mesh)``
+names the mesh whose model group the head-sharded attention modules reduce
+over. A sharded module projects only its local heads, so the flash sites
+run the kernels on (B, heads / m, N, d) with no collective inside the
+attention; a site whose heads do not divide by m was left whole and runs
+replicated, unchanged.
 """
 
 from __future__ import annotations
@@ -19,6 +26,29 @@ import torch
 from sketch2img_torch.ops import flash_attention as fa
 
 _DEFAULT_BACKEND = "auto"
+# the mesh of tensor-parallel serving (its model group), or None
+_TP_CONTEXT = None
+
+
+def set_tensor_parallel_context(mesh=None) -> None:
+    """Enable (or clear, with None) head-sharded attention over ``mesh``'s
+    model axis: the attention modules ``parallel.shard_params_tp`` sliced to
+    their local heads reduce their ``to_out`` products over its model
+    group."""
+    global _TP_CONTEXT
+    _TP_CONTEXT = mesh
+
+
+def tensor_parallel_group(size: int):
+    """The model group of the context's mesh, which must have ``size``
+    ranks on its model axis (a module sliced for ``size`` ranks cannot run
+    under another or no context)."""
+    mesh = _TP_CONTEXT
+    got = None if mesh is None else mesh.shape["model"]
+    if got != size:
+        raise RuntimeError(f"an attention sliced for {size} model ranks runs under a tensor-"
+                           f"parallel context of {got}: call set_tensor_parallel_context(mesh)")
+    return mesh.model_group
 
 
 def set_default_attention_backend(backend: str) -> None:

@@ -8,6 +8,12 @@ latent (a backward pass through the whole UNet, cond half only). The latent
 is then nudged by alpha * (-grad) with the per-image step size
 alpha = sqrt(2) * ||x - x_prev|| / max(||grad||, 1e-20) * beta. The
 remaining steps are plain CFG steps at batch 2B.
+
+``remat=True`` runs the cond forward with the UNet's blocks recomputed in
+the backward (``UNetConfig.remat``): the same eps and gradient, less memory.
+Every image's update depends on its own loss term alone (the per-image
+alpha is invariant to the loss's scale), so a data-parallel shard of the
+batch takes the update the whole batch would give it.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ def _per_image_norm(v: torch.Tensor) -> torch.Tensor:
 def guided_step(unet, lgp, schedule: DiffusionSchedule, sampler_step, i: int, t: int,
                 x: torch.Tensor, x0_prev: torch.Tensor, noise0: torch.Tensor,
                 context_uncond: torch.Tensor, context_cond: torch.Tensor,
-                sketch_latent: torch.Tensor, guidance_scale: float, beta: float = 1.6):
+                sketch_latent: torch.Tensor, guidance_scale: float, beta: float = 1.6,
+                remat: bool = False):
     """One guided step. Returns (x_next, x0)."""
     b, _, h, w = x.shape
     tt = torch.full((b,), t, dtype=torch.long, device=x.device)
@@ -46,7 +53,7 @@ def guided_step(unet, lgp, schedule: DiffusionSchedule, sampler_step, i: int, t:
         eps_u = unet(x, tt, context_uncond)
     with torch.enable_grad():
         xc = x.detach().requires_grad_(True)
-        eps_t, taps = unet(xc, tt, context_cond, capture_taps=True)
+        eps_t, taps = unet(xc, tt, context_cond, capture_taps=True, remat=remat)
         out = lgp_fused_apply(lgp, taps, get_noise_level(schedule, noise0, tt), h, w)
         loss = torch.mean((sketch_latent.float() - out.float()) ** 2)
         (g,) = torch.autograd.grad(loss, xc)
@@ -75,7 +82,7 @@ def sample_sketch_guided(unet, lgp, schedule: DiffusionSchedule, num_steps: int,
                          context_cond: torch.Tensor, sketch_latent: torch.Tensor,
                          guidance_scale: float, *, beta: float = 1.6, solver: str = "dpm++",
                          callback: Optional[Callable] = None,
-                         callback_steps: int = 1) -> torch.Tensor:
+                         callback_steps: int = 1, remat: bool = False) -> torch.Tensor:
     """(B, 4, h, w) initial noise -> final latents. ``latents0`` is also the
     noise the LGP's noise-level feature is computed from; ``sketch_latent``
     is the VAE-encoded sketch x0.18215, (B, 4, h, w)."""
@@ -86,7 +93,7 @@ def sample_sketch_guided(unet, lgp, schedule: DiffusionSchedule, num_steps: int,
         if i < n_guided:
             x, x0_prev = guided_step(unet, lgp, schedule, sampler_step, i, int(t), x, x0_prev,
                                      latents0, context_uncond, context_cond, sketch_latent,
-                                     guidance_scale, beta)
+                                     guidance_scale, beta, remat)
         else:
             x, x0_prev = plain_step(unet, sampler_step, i, int(t), x, x0_prev,
                                     context_uncond, context_cond, guidance_scale)

@@ -7,7 +7,9 @@ LGP and safety checker), the schedule and the tokenizer, all on one device, froz
 computes the gradient with respect to the latent and no weight gradient.
 ``SketchGuidedPipeline.__call__`` is the reference demo's call signature;
 when a safety checker is loaded it runs on every generation and blacks out
-flagged images (``last_nsfw_flags``). ``save_native`` / ``from_native``
+flagged images (``last_nsfw_flags``); with a ``parallel.make_mesh()``
+mesh it runs data-parallel (and, with a model axis, tensor-parallel) over
+the ranks of a ``torchrun`` job. ``save_native`` / ``from_native``
 write and read the JAX package's native npz checkpoint (its parameter
 trees, float32), so a directory written by either package loads in the
 other. Everything defaults to ``device="cuda"`` and raises without a GPU.
@@ -22,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from sketch2img_torch.core.manifest import check_state_dict
 from sketch2img_torch.core.schedulers import DiffusionSchedule, make_schedule
 from sketch2img_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder, SD15_TEXT_CONFIG
 from sketch2img_torch.models.clip_vision import VIT_L14_CONFIG, CLIPVisionConfig
@@ -129,7 +132,8 @@ class SDComponents:
     ) -> "SDComponents":
         """Load a diffusers-format SD1.x directory (unet/, vae/, text_encoder/,
         tokenizer/ and, where present, safety_checker/) with strict
-        ``load_state_dict``."""
+        ``load_state_dict``; at the published SD1.5 configs each state dict
+        is first held to its manifest (``core.manifest.check_state_dict``)."""
         from sketch2img_torch.data.tokenizer import CLIPBPETokenizer
 
         dev = resolve_device(device)
@@ -138,10 +142,14 @@ class SDComponents:
             unet = UNet2DCondition(unet_config)
             vae = AutoencoderKL(vae_config)
             text = CLIPTextEncoder(text_config)
-        for module, sub in ((unet, "unet/diffusion_pytorch_model"),
-                            (vae, "vae/diffusion_pytorch_model"),
-                            (text, "text_encoder/model")):
+        for module, sub, full, name in (
+                (unet, "unet/diffusion_pytorch_model", unet_config == SD15_CONFIG, "unet_sd15"),
+                (vae, "vae/diffusion_pytorch_model", vae_config == SD15_VAE_CONFIG, "vae_sd15"),
+                (text, "text_encoder/model", text_config == SD15_TEXT_CONFIG,
+                 "text_encoder_sd15")):
             sd = _clean(_load_state_dict(os.path.join(model_path, sub)))
+            if full:
+                check_state_dict(name, sd, what=os.path.join(model_path, sub))
             module.load_state_dict(sd, strict=True, assign=True)
         tok_dir = os.path.join(model_path, "tokenizer")
         tokenizer = CLIPBPETokenizer.from_pretrained(tok_dir) if os.path.isdir(tok_dir) else None
@@ -162,6 +170,8 @@ class SDComponents:
             if not any(os.path.exists(base + e) for e in (".safetensors", ".bin")):
                 base = os.path.join(path, "pytorch_model")
         sd = _clean(_load_state_dict(base))
+        if vision_config == VIT_L14_CONFIG:
+            check_state_dict("safety_checker_sd15", sd, what=base)
         n_concepts, proj_dim = sd["concept_embeds"].shape
         with torch.device("meta"):
             checker = SafetyChecker(vision_config, proj_dim, n_concepts,
@@ -193,8 +203,12 @@ class SDComponents:
         return img, flags
 
     def load_lgp_torch(self, path: str) -> None:
-        """Load the published ``edge_predictor.pt`` strictly (kept fp32)."""
-        self.load_lgp_state(torch.load(path, map_location="cpu", weights_only=True))
+        """Load the published ``edge_predictor.pt`` strictly (kept fp32); an
+        LGP over the SD1.5 taps (9320 inputs) is held to its manifest."""
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if sd["layers.0.weight"].shape[1] == tap_channels(SD15_CONFIG) + 4 + 36:
+            check_state_dict("edge_predictor", sd, what=path)
+        self.load_lgp_state(sd)
 
     def load_lgp_state(self, sd: Dict[str, torch.Tensor]) -> None:
         """An LGP state dict (``edge_predictor.pt`` layout), loaded strictly
@@ -286,11 +300,103 @@ class SDComponents:
 class SketchGuidedPipeline:
     """User-facing pipeline: prompt or prompt list, ``num_images_per_prompt``,
     scalar or per-image seeds, one sketch or a list of per-image sketches,
-    ``solver``, ``callback(i, t, latents)`` every ``callback_steps`` steps."""
+    ``solver``, ``callback(i, t, latents)`` every ``callback_steps`` steps.
 
-    def __init__(self, components: SDComponents):
+    ``mesh`` (optional, a ``parallel.make_mesh()`` (data, model) mesh; every
+    rank of it builds the pipeline and makes the same calls): the weights
+    are replicated from rank 0, each rank samples its rows of the batch (the
+    data axis; a batch that does not divide it is padded in the per-image-
+    seed mode and the pad rows dropped), and the images, the NSFW flags and
+    the callback's latents are gathered, so every rank returns the whole
+    batch. With a model axis above 1 the UNet's attention is sliced to each
+    rank's heads in place (``parallel.shard_params_tp``; the components'
+    UNet then serves only under this mesh). Without a mesh it runs on the
+    components' one device, as before."""
+
+    def __init__(self, components: SDComponents, mesh=None):
         self.c = components
         self.last_nsfw_flags: Optional[np.ndarray] = None
+        self.last_remat: Optional[bool] = None  # remat of the last guided call
+        self.mesh = mesh
+        self._dp = 1
+        if mesh is not None:
+            self._setup_mesh(mesh)
+
+    def _setup_mesh(self, mesh) -> None:
+        """Replicate every component's weights from rank 0; with a model
+        axis above 1, slice the UNet's attention to this rank's heads and
+        enable the tensor-parallel attention context."""
+        from sketch2img_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, shard_params
+
+        self._dp = mesh.shape[DATA_AXIS]
+        c = self.c
+        for m in (c.unet, c.vae, c.text_encoder, c.lgp, c.safety_checker):
+            if m is not None:
+                shard_params(mesh, m)
+        if mesh.shape[MODEL_AXIS] > 1:
+            from sketch2img_torch.ops.attention import set_tensor_parallel_context
+            from sketch2img_torch.parallel.tp import shard_params_tp
+
+            shard_params_tp(mesh, c.unet)
+            set_tensor_parallel_context(mesh)
+
+    def _shard_batch(self, x):
+        """This rank's rows of a full-batch tensor (or list) over the data
+        axis (``parallel.shard_batch_array``); the identity without a mesh."""
+        from sketch2img_torch.parallel.mesh import shard_batch_array
+
+        return shard_batch_array(self.mesh, x)
+
+    def _fetch(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole batch from every rank's rows (``parallel.fetch_global``);
+        the identity without a mesh."""
+        from sketch2img_torch.parallel.mesh import fetch_global
+
+        return fetch_global(self.mesh, x)
+
+    def _pad_for_mesh(self, batch: int, seed, sketch_image):
+        """(pad rows, seed, sketch_image) for a batch that must divide the
+        data axis: the pad rides per-image seeds (a scalar seed at batch 1
+        is the same draw as a one-seed list), so the first ``batch`` images
+        are the unpadded ones; the pad rows repeat the last sketch."""
+        pad = (-batch) % self._dp
+        if not pad:
+            return 0, seed, sketch_image
+        if isinstance(seed, (list, tuple)):
+            if len(seed) != batch:
+                raise ValueError(f"got {len(seed)} seeds for a batch of {batch}")
+        elif batch == 1:
+            seed = [seed]
+        else:
+            raise ValueError(
+                f"batch {batch} doesn't divide the mesh data axis ({self._dp}): pass "
+                "per-image seeds (seed=[...]) so padded results stay exact, or use a "
+                "divisible batch")
+        seed = list(seed) + [1] * pad
+        if isinstance(sketch_image, (list, tuple)):
+            if len(sketch_image) != batch:
+                raise ValueError(f"got {len(sketch_image)} sketches for a batch of {batch}")
+            sketch_image = list(sketch_image) + [sketch_image[-1]] * pad
+        return pad, seed, sketch_image
+
+    def _shard_pair(self, uncond: torch.Tensor, cond: torch.Tensor, pad: int):
+        """The CFG pair padded by repeating its last row ``pad`` times, then
+        this rank's rows of each."""
+        if pad:
+            uncond = torch.cat([uncond, uncond[-1:].expand(pad, -1, -1)])
+            cond = torch.cat([cond, cond[-1:].expand(pad, -1, -1)])
+        return self._shard_batch(uncond), self._shard_batch(cond)
+
+    def _finish(self, img: torch.Tensor, batch: int) -> np.ndarray:
+        """Safety check this rank's images, gather images and flags over the
+        data axis, drop the pad rows -> (B, H, W, 3) host images."""
+        img, flags = self.c.run_safety_checker(img)
+        img = self._fetch(img)[:batch]
+        if flags is not None and self.mesh is not None:
+            flags = self._fetch(torch.as_tensor(flags.astype(np.uint8), device=img.device))
+            flags = flags.cpu().numpy().astype(bool)
+        self.last_nsfw_flags = None if flags is None else flags[:batch]
+        return img.permute(0, 2, 3, 1).float().cpu().numpy()
 
     @property
     def device(self) -> torch.device:
@@ -391,11 +497,13 @@ class SketchGuidedPipeline:
     ) -> np.ndarray:
         """-> (H, W, 3) float image in [0, 1] for one string prompt and one
         image per prompt, else (B, H, W, 3). ``eta`` is accepted for API
-        parity and unused. ``remat``: only None/False (no recomputation) is
-        supported so far."""
+        parity and unused. ``remat`` (the sketch-guided route): recompute the
+        UNet's blocks in the guided backward; None picks it from
+        ``core.memory.choose_remat`` on each rank's share of the batch
+        (``last_remat`` tells which ran); the result is the same either way.
+        Under a mesh the callback gets the whole batch's latents, without
+        pad rows; every rank must pass a callback or none."""
         del eta
-        if remat:
-            raise NotImplementedError("remat=True is not ported yet")
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         batch = len(prompts) * num_images_per_prompt
         single = isinstance(prompt, str) and num_images_per_prompt == 1
@@ -405,29 +513,46 @@ class SketchGuidedPipeline:
         if sketch_image is not None and isinstance(sketch_image, (list, tuple)):
             if len(sketch_image) != batch:
                 raise ValueError(f"got {len(sketch_image)} sketches for a batch of {batch}")
+        pad, seed, sketch_image = self._pad_for_mesh(batch, seed, sketch_image)
+        batch_p = batch + pad
         per_image = isinstance(seed, (list, tuple))
         n_noise = 0
         if sketch_image is not None:
-            n_noise = batch if per_image or isinstance(sketch_image, (list, tuple)) else 1
-        latents0, noise = self._initial_noise(seed, batch, h, w, n_noise)
-        uncond, cond = self.encode_prompt(prompt, negative_prompt, num_images_per_prompt)
+            n_noise = batch_p if per_image or isinstance(sketch_image, (list, tuple)) else 1
+        latents0, noise = self._initial_noise(seed, batch_p, h, w, n_noise)
+        uncond, cond = self._shard_pair(
+            *self.encode_prompt(prompt, negative_prompt, num_images_per_prompt), pad)
+        latents0 = self._shard_batch(latents0)
+        cb = callback
+        if callback is not None and self.mesh is not None:
+            def cb(i, t, x):
+                callback(i, t, self._fetch(x)[:batch])
 
         if sketch_image is not None:
             if self.c.lgp is None:
                 raise ValueError("sketch guidance needs an LGP: load_lgp_torch or random_init")
+            if isinstance(sketch_image, (list, tuple)):
+                sketch_image = self._shard_batch(list(sketch_image))
+            if noise.shape[0] > 1:
+                noise = self._shard_batch(noise)
             mean, logvar = self.sketch_moments(sketch_image)  # (1 or B, 4, h, w)
-            target = sample_latent(mean, logvar, noise).expand(batch, -1, -1, -1)
+            target = sample_latent(mean, logvar, noise).expand(latents0.shape[0], -1, -1, -1)
+            if remat is None:
+                from sketch2img_torch.core.memory import choose_remat
+
+                # the peak is per device: each rank holds batch_p / dp rows
+                remat = choose_remat(batch_p // self._dp, height, width)
+            self.last_remat = bool(remat)
             latents = sample_sketch_guided(
                 self.c.unet, self.c.lgp, self.c.schedule, num_inference_steps, latents0,
                 uncond, cond, target, guidance_scale, solver=solver,
-                callback=callback, callback_steps=callback_steps)
+                callback=cb, callback_steps=callback_steps, remat=bool(remat))
         else:
             latents = sample_text2img(
                 self.c.unet, self.c.schedule, num_inference_steps, latents0,
                 torch.cat([uncond, cond]), guidance_scale, solver=solver,
-                callback=callback, callback_steps=callback_steps)
+                callback=cb, callback_steps=callback_steps)
         with torch.no_grad():
             img = latents_to_image(self.c.vae, latents)
-        img, self.last_nsfw_flags = self.c.run_safety_checker(img)
-        img = img.permute(0, 2, 3, 1).float().cpu().numpy()
+        img = self._finish(img, batch)
         return img[0] if single else img

@@ -1,9 +1,9 @@
 """Mid-training samples — counterpart of ``sketch2img_tpu/train/sampling.py``:
 the ``sampling:`` block of ``train.yaml``. Every ``every_n_steps`` steps or
 ``every_n_epochs`` epochs, render the configured prompts with the frozen SD
-stack (``pipelines/text2img.sample_text2img``, DPM-Solver++) and save PNGs.
-Logging them to wandb (``use_wandb``) needs the network and is not ported:
-asking for it raises.
+stack (``pipelines/text2img.sample_text2img``, DPM-Solver++) and save PNGs;
+with ``use_wandb`` each is also logged to wandb, and a failure there (no
+wandb, no network) is swallowed, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,9 +24,6 @@ class TrainingSampler:
         ``SketchGuidedPipeline.encode_prompt``."""
         self.cfg = dict(sampling_cfg or {})
         self.enabled = bool(self.cfg.get("enabled", False))
-        if self.enabled and self.cfg.get("use_wandb"):
-            raise NotImplementedError("sampling.use_wandb: wandb logging is not ported "
-                                      "(it needs the network)")
         self.unet, self.vae = unet, vae
         self.encode_prompt = encode_prompt
         self.schedule = schedule
@@ -63,7 +60,15 @@ class TrainingSampler:
             latents = sample_text2img(self.unet, self.schedule, steps, lat0.to(device),
                                       torch.cat([uncond, cond]), float(cfg.get("cfg_scale", 9)))
             img = latents_to_image(self.vae, latents)[0].permute(1, 2, 0).float().cpu().numpy()
+            arr = (img * 255).astype(np.uint8)
             path = os.path.join(save_dir, f"{tag}_{i}.png")
-            Image.fromarray((img * 255).astype(np.uint8)).save(path)
+            Image.fromarray(arr).save(path)
             paths.append(path)
+            if cfg.get("use_wandb"):
+                try:
+                    import wandb
+
+                    wandb.log({f"samples/{i}": wandb.Image(arr)})
+                except Exception:
+                    pass
         return paths

@@ -17,7 +17,7 @@ masters through the casts. The loss is fp32.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -28,7 +28,14 @@ from sketch2img_torch.models.safety_checker import clip_normalize
 from sketch2img_torch.models.unet import num_transformer_blocks
 from sketch2img_torch.models.vae import sample_latent
 from sketch2img_torch.ops.resize import resize_bicubic
-from sketch2img_torch.train.train_lgp import Frozen, draw, encode_text, generate_sketch
+from sketch2img_torch.train.train_lgp import (
+    Frozen,
+    data_shard,
+    draw,
+    encode_text,
+    generate_sketch,
+    reduce_step,
+)
 
 #: CLIP parameters the loss never reads (``post_layernorm`` feeds only the
 #: pooled output): not trained, as the JAX package's tree has none
@@ -81,7 +88,8 @@ def inject_loss(unet, clip, noisy, t, ctx, sketch_pixels, noise) -> torch.Tensor
 def inject_inputs(frozen: Frozen, batch: Dict[str, torch.Tensor], *,
                   sketch_fixed_size: int = 512, clip_image_size: int = 224,
                   cached_latents: bool = False, draws: Optional[Dict[str, torch.Tensor]] = None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  shard: Optional[Tuple[int, int]] = None):
     """The frozen part, without grad: -> (noisy latents, t, text states,
     CLIP pixels of the sketch, diffusion noise). ``batch``: ``input_ids`` and
     ``pixels`` (B, 3, H, W) in [-1, 1], or with ``cached_latents``
@@ -98,7 +106,7 @@ def inject_inputs(frozen: Frozen, batch: Dict[str, torch.Tensor], *,
                                        clip_image_size=clip_image_size)
         if draws is None:
             draws = draw(mean.shape, frozen.schedule.num_train_timesteps, ("latent", "noise"),
-                         generator, mean.device)
+                         generator, mean.device, shard)
         latents = sample_latent(mean, logvar, draws["latent"])
         noise, t = draws["noise"], draws["t"]
         noisy = add_noise(frozen.schedule, latents, noise, t)
@@ -106,13 +114,17 @@ def inject_inputs(frozen: Frozen, batch: Dict[str, torch.Tensor], *,
 
 
 def inject_train_step(unet, clip, optimizer: torch.optim.Optimizer, frozen: Frozen,
-                      batch: Dict[str, torch.Tensor], **kwargs) -> torch.Tensor:
+                      batch: Dict[str, torch.Tensor], mesh=None, **kwargs) -> torch.Tensor:
     """One step: ``inject_inputs`` (``kwargs`` go there), ``inject_loss``,
-    backward, optimizer update of the trainables. -> the loss (0-d, fp32,
-    detached)."""
-    noisy, t, ctx, sk, noise = inject_inputs(frozen, batch, **kwargs)
+    backward, optimizer update of the trainables. Under ``mesh`` the draws
+    are the global batch's rows of this shard and the trainables' gradients
+    are averaged over the data group (``train_lgp.reduce_step``). -> the
+    loss (0-d, fp32, detached; the global batch's under a mesh)."""
+    noisy, t, ctx, sk, noise = inject_inputs(frozen, batch, shard=data_shard(mesh), **kwargs)
     loss = inject_loss(unet, clip, noisy, t, ctx, sk, noise)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    loss = reduce_step(mesh, params, loss)
     optimizer.step()
     return loss.detach()

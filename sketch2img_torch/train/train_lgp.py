@@ -14,12 +14,21 @@ Randomness: the latent-sample noise, the sketch-latent noise, the diffusion
 noise and the timesteps are drawn from ``generator`` unless the caller
 passes them (``draws``; the tests pass the JAX step's draws). Tensors are
 NCHW on the frozen modules' device; the LGP stays fp32.
+
+Data parallel (``mesh``, a ``parallel.make_mesh()`` mesh): each rank holds
+its shard of the global batch (the loader's rows index::count of it), draws
+the global batch's noise and timesteps from the same step generator and
+keeps its own rows, takes BatchNorm statistics over the global batch
+(``models.lgp.sync_batch_stats``), and averages the gradients over the data
+group before the update; the returned loss is the global batch's. A
+two-rank step is then the one-rank step on the same global batch, to the
+summation order.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -83,20 +92,44 @@ def encode_text(text_encoder, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def draw(shape, num_timesteps: int, names, generator: Optional[torch.Generator],
-         device) -> Dict[str, torch.Tensor]:
+         device, shard: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """Standard-normal tensors of ``shape`` (B, C, h, w) under each of
     ``names`` and B timesteps in [0, num_timesteps) under "t", from
     ``generator`` (on the CPU or on ``device``; None: PyTorch's default
-    generator of ``device``), moved to ``device``."""
+    generator of ``device``), moved to ``device``. ``shard`` = (index,
+    count): ``shape`` is one of ``count`` shards of the batch; the global
+    batch's B * count rows are drawn and rows index::count kept (the
+    loader's sharding)."""
     gdev = generator.device if generator is not None else device
-    out = {n: torch.randn(shape, generator=generator, device=gdev) for n in names}
-    out["t"] = torch.randint(0, num_timesteps, (shape[0],), generator=generator, device=gdev)
-    return {k: v.to(device) for k, v in out.items()}
+    index, count = shard or (0, 1)
+    full = (shape[0] * count,) + tuple(shape[1:])
+    out = {n: torch.randn(full, generator=generator, device=gdev) for n in names}
+    out["t"] = torch.randint(0, num_timesteps, (full[0],), generator=generator, device=gdev)
+    return {k: v[index::count].to(device) for k, v in out.items()}
+
+
+def data_shard(mesh) -> Optional[Tuple[int, int]]:
+    """(data index, data-axis size) of a mesh, None without one."""
+    return None if mesh is None else (mesh.data_index, mesh.shape["data"])
+
+
+def reduce_step(mesh, params, loss: torch.Tensor) -> torch.Tensor:
+    """After the backward of a data-parallel step: average ``params``'
+    gradients over the data group, -> the loss averaged over it (the global
+    batch's; the local loss without a mesh)."""
+    if mesh is None:
+        return loss
+    from sketch2img_torch.parallel.mesh import all_reduce_, average_gradients
+
+    dp = mesh.shape["data"]
+    average_gradients(params, mesh.data_group, dp)
+    return all_reduce_(loss.detach().clone(), mesh.data_group) / dp
 
 
 def lgp_inputs(frozen: Frozen, batch: Dict[str, torch.Tensor], *, sketch_fixed_size: int = 1024,
                cached_latents: bool = False, draws: Optional[Dict[str, torch.Tensor]] = None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               shard: Optional[Tuple[int, int]] = None):
     """Steps 1-3, without grad: -> (taps concatenated (B, C, h, w) fp32,
     noise level (B, 4, h, w), sketch latents (B, 4, h, w)). ``batch`` holds
     ``input_ids`` (B, L) and ``pixels`` (B, 3, H, W) in [-1, 1], or with
@@ -115,7 +148,7 @@ def lgp_inputs(frozen: Frozen, batch: Dict[str, torch.Tensor], *, sketch_fixed_s
             smean, slogvar = frozen.vae.encode(sketch)  # the [0, 1] sketch, as in JAX
         if draws is None:
             draws = draw(mean.shape, frozen.schedule.num_train_timesteps,
-                         ("latent", "sketch", "noise"), generator, mean.device)
+                         ("latent", "sketch", "noise"), generator, mean.device, shard)
         latents = sample_latent(mean, logvar, draws["latent"])
         sketch_latents = sample_latent(smean, slogvar, draws["sketch"])
         noise, t = draws["noise"], draws["t"]
@@ -127,14 +160,17 @@ def lgp_inputs(frozen: Frozen, batch: Dict[str, torch.Tensor], *, sketch_fixed_s
 
 
 def lgp_train_step(lgp, optimizer: torch.optim.Optimizer, frozen: Frozen,
-                   batch: Dict[str, torch.Tensor], **kwargs) -> torch.Tensor:
+                   batch: Dict[str, torch.Tensor], mesh=None, **kwargs) -> torch.Tensor:
     """One step (module docstring); ``kwargs`` go to ``lgp_inputs``. The LGP
-    runs in train mode. Returns the loss (a 0-d fp32 tensor, detached)."""
-    feats, noise_level, sketch_latents = lgp_inputs(frozen, batch, **kwargs)
+    runs in train mode (under ``mesh``, its BatchNorms synchronised over the
+    data group). Returns the loss (a 0-d fp32 tensor, detached)."""
+    feats, noise_level, sketch_latents = lgp_inputs(frozen, batch, shard=data_shard(mesh),
+                                                    **kwargs)
     lgp.train()
     out = lgp(feats, noise_level)
     loss = torch.mean((out.float() - sketch_latents.float()) ** 2)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss = reduce_step(mesh, list(lgp.parameters()), loss)
     optimizer.step()
     return loss.detach()

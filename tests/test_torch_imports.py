@@ -45,6 +45,13 @@ APPS_MODULES = [
     "sketch2img_torch.apps.convert_checkpoint", "sketch2img_torch.apps.evaluation",
     "sketch2img_torch.apps.pic2sketch", "sketch2img_torch.apps.serve",
 ]
+# every module of the distribution and host-utilities slice
+DIST_MODULES = [
+    "sketch2img_torch.parallel", "sketch2img_torch.parallel.mesh", "sketch2img_torch.parallel.tp",
+    "sketch2img_torch.core.memory", "sketch2img_torch.core.manifest",
+    "sketch2img_torch.utils.params", "sketch2img_torch.utils.debug",
+    "sketch2img_torch.utils.profiling", "sketch2img_torch.utils.hub",
+]
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +81,7 @@ def test_port_imports_no_jax(subprocesses):
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["names"]) >= 15 and got["bad"] == [], out.stdout
-    missing = sorted(set(TRAINING_MODULES + APPS_MODULES) - set(got["names"]))
+    missing = sorted(set(TRAINING_MODULES + APPS_MODULES + DIST_MODULES) - set(got["names"]))
     assert not missing, missing
 
 

@@ -132,8 +132,11 @@ def test_pipeline_sketch_guided_surface(pipe):
     batch = pipe(["a", "b"], num_images_per_prompt=2, num_inference_steps=2, width=32,
                  height=32, seed=7, sketch_image=_sketch())
     assert batch.shape == (4, 32, 32, 3)
-    with pytest.raises(NotImplementedError):
-        pipe("a", num_inference_steps=1, width=32, height=32, remat=True)
+    # remat=True recomputes the UNet's blocks in the guided backward: the same image
+    again = pipe("a tree", num_inference_steps=3, width=32, height=32, seed=5,
+                 sketch_image=_sketch(), remat=True)
+    assert pipe.last_remat is True
+    np.testing.assert_allclose(again, img, rtol=0, atol=1e-6)
 
 
 def test_pipeline_per_image_seeds_are_batch_invariant(pipe):

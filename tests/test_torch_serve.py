@@ -412,12 +412,23 @@ def test_metrics_and_recorded_calls_match_jax(sides):
         assert sides["port"].stubs[name].calls
 
 
-def test_multi_gpu_flags_exit_with_a_message(capsys):
-    with pytest.raises(SystemExit) as e:
-        tserve.parse_args(["--model_path", "m", "--lgp_path", "l", "--data_parallel", "2"])
-    assert e.value.code != 0 and "one GPU" in capsys.readouterr().err
-    args = tserve.parse_args(["--model_path", "m", "--lgp_path", "l"])
+def test_multi_gpu_flags_exit_with_a_message():
+    """The flags are taken; a job whose world size is not their product, a
+    host with fewer GPUs than processes, and the injection route under
+    tensor parallelism exit with a message, as the JAX server does."""
+    base = ["--model_path", "m", "--lgp_path", "l"]
+    args = tserve.parse_args(base)
     assert args.data_parallel == args.model_parallel == 1
+    tserve.check_parallel_args(args, 1, 1, 0)
+    args = tserve.parse_args(base + ["--data_parallel", "2"])
+    with pytest.raises(SystemExit, match="needs 2 processes, one per GPU"):
+        tserve.check_parallel_args(args, 1, 1, 1)
+    with pytest.raises(SystemExit, match="needs 2 devices on this host, found 1"):
+        tserve.check_parallel_args(args, 2, 2, 1)
+    tserve.check_parallel_args(args, 2, 2, 2)
+    args = tserve.parse_args(base + ["--model_parallel", "2", "--inject_attn_weights", "a.pt"])
+    with pytest.raises(SystemExit, match="data-parallel only"):
+        tserve.check_parallel_args(args, 2, 2, 2)
 
 
 # ---------------------------------------------------------------------------
