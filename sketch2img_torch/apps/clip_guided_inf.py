@@ -36,6 +36,7 @@ from sketch2img_torch.models.unet import SD15_CONFIG, UNet2DCondition, UNetConfi
 from sketch2img_torch.pipelines.attn_injected import cfg_injection_state, sample_attn_injected
 from sketch2img_torch.pipelines.text2img import latents_to_image
 from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline, _clean, _frozen
+from sketch2img_torch.utils.device import set_deterministic
 
 StateDict = Dict[str, torch.Tensor]
 _TORCH_SUFFIXES = (".pt", ".pth", ".bin")
@@ -108,6 +109,7 @@ class ClipGuidedPipeline:
         self.c = components if components is not None else SDComponents.from_diffusers_dir(
             model_path)
         dev, dt = self.c.device, self.c.unet.dtype
+        set_deterministic(dev)
         self.clip_config = clip_config
         inj_config = dataclasses.replace(self.c.unet.config, injection="clip",
                                          injection_context_dim=clip_config.hidden_size)

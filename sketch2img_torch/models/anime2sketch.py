@@ -79,9 +79,11 @@ class UnetGenerator(nn.Module):
         return self.model(x.to(self.dtype))
 
 
-def create_anime2sketch(num_downs: int = 8, ngf: int = 64) -> UnetGenerator:
-    """The published generator's options (3 -> 1 channels, 8 downs, ngf 64)."""
-    return UnetGenerator(3, 1, num_downs, ngf)
+def create_anime2sketch(num_downs: int = 8, ngf: int = 64,
+                        compute_dtype: torch.dtype = torch.float32) -> UnetGenerator:
+    """The published generator's options (3 -> 1 channels, 8 downs, ngf 64),
+    its weights (and so its arithmetic) in ``compute_dtype``."""
+    return UnetGenerator(3, 1, num_downs, ngf).to(compute_dtype)
 
 
 def binarize_sketch(raw: torch.Tensor) -> torch.Tensor:
@@ -103,9 +105,10 @@ def load_netg(path: str, num_downs: int = 8, ngf: int = 64,
     generator on ``device`` (at the published size, held to its manifest
     first, with or without DataParallel's ``module.``)."""
     from sketch2img_torch.core.manifest import check_state_dict
-    from sketch2img_torch.utils.device import resolve_device
+    from sketch2img_torch.utils.device import resolve_device, set_deterministic
 
     dev = resolve_device(device)
+    set_deterministic(dev)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = sd.get("state_dict", sd)
     if (num_downs, ngf) == (8, 64):

@@ -24,6 +24,8 @@ from typing import Any, Optional, Union
 import torch
 import torch.distributed as dist
 
+from sketch2img_torch.utils.device import set_deterministic
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
@@ -43,6 +45,7 @@ def initialize_distributed(device: Union[str, torch.device] = "cuda", *,
     if init_method is None and "WORLD_SIZE" not in os.environ:
         return False
     dev = torch.device(device)
+    set_deterministic(dev)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", 0 if rank is None else rank))

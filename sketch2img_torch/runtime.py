@@ -13,6 +13,9 @@ the ranks of a ``torchrun`` job. ``save_native`` / ``from_native``
 write and read the JAX package's native npz checkpoint (its parameter
 trees, float32), so a directory written by either package loads in the
 other. Everything defaults to ``device="cuda"`` and raises without a GPU.
+On the card the constructors and the pipeline make cuDNN deterministic
+(``utils.device.set_deterministic``): the same call with the same seeds
+gives the same image, bit for bit.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from sketch2img_torch.models.unet import SD15_CONFIG, UNet2DCondition, UNetConfi
 from sketch2img_torch.models.vae import SD15_VAE_CONFIG, AutoencoderKL, VAEConfig, sample_latent
 from sketch2img_torch.pipelines.sketch_guided import sample_sketch_guided
 from sketch2img_torch.pipelines.text2img import latents_to_image, sample_text2img
-from sketch2img_torch.utils.device import resolve_device, set_precision
+from sketch2img_torch.utils.device import resolve_device, set_deterministic, set_precision
 
 # checkpoint keys that carry no weight (old transformers / BatchNorm bookkeeping)
 _IGNORED_SUFFIXES = ("position_ids",)
@@ -76,6 +79,26 @@ def _frozen(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
     return module.to(device).eval().requires_grad_(False)
 
 
+def _device_for_models(device) -> torch.device:
+    """``device`` resolved, with the port's numeric settings applied."""
+    dev = resolve_device(device)
+    set_precision()
+    set_deterministic(dev)
+    return dev
+
+
+def _matching(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
+              strict: bool) -> Dict[str, torch.Tensor]:
+    """``sd`` as the strict ``load_state_dict`` takes it: whole when
+    ``strict``; else only the keys ``module`` has, as the JAX package's
+    ``strict=False`` loads whatever its converters read (a missing key
+    still raises)."""
+    if strict:
+        return sd
+    keys = module.state_dict().keys()
+    return {k: v for k, v in sd.items() if k in keys}
+
+
 @dataclasses.dataclass
 class SDComponents:
     """Frozen SD1.x modules on one device, plus schedule, tokenizer and LGP."""
@@ -98,14 +121,15 @@ class SDComponents:
         unet_config: UNetConfig = SD15_CONFIG,
         vae_config: VAEConfig = SD15_VAE_CONFIG,
         text_config: CLIPTextConfig = SD15_TEXT_CONFIG,
+        random_weights: bool = False,
         lgp: bool = True,
         device: Union[str, torch.device] = "cuda",
     ) -> "SDComponents":
-        """Seeded random weights at the given architecture (PyTorch's default
-        initialisers, drawn on ``device``). The LGP, sized to the UNet's taps,
-        stays fp32; the other modules are cast to ``compute_dtype``."""
-        dev = resolve_device(device)
-        set_precision()
+        """Zero weights at the given architecture, as in the JAX package, or
+        with ``random_weights`` seeded random ones (PyTorch's default
+        initialisers, drawn on ``device``). The LGP, sized to the UNet's
+        taps, stays fp32; the other modules are cast to ``compute_dtype``."""
+        dev = _device_for_models(device)
         devices = [dev] if dev.type == "cuda" else []
         with torch.random.fork_rng(devices=devices), torch.device(dev):
             torch.manual_seed(seed)
@@ -114,6 +138,11 @@ class SDComponents:
             text = CLIPTextEncoder(text_config)
             head = (LatentEdgePredictor(input_dim=tap_channels(unet_config) + 4 + 36)
                     if lgp else None)
+        if not random_weights:
+            with torch.no_grad():
+                for m in filter(None, (unet, vae, text, head)):
+                    for p in m.parameters():
+                        p.zero_()
         c = cls(unet=_frozen(unet, dev), vae=_frozen(vae, dev), text_encoder=_frozen(text, dev),
                 schedule=make_schedule(), device=dev,
                 lgp=_frozen(head, dev) if head is not None else None)
@@ -128,16 +157,20 @@ class SDComponents:
         unet_config: UNetConfig = SD15_CONFIG,
         vae_config: VAEConfig = SD15_VAE_CONFIG,
         text_config: CLIPTextConfig = SD15_TEXT_CONFIG,
+        safety_checker: bool = True,
+        strict: bool = True,
         device: Union[str, torch.device] = "cuda",
     ) -> "SDComponents":
         """Load a diffusers-format SD1.x directory (unet/, vae/, text_encoder/,
-        tokenizer/ and, where present, safety_checker/) with strict
-        ``load_state_dict``; at the published SD1.5 configs each state dict
-        is first held to its manifest (``core.manifest.check_state_dict``)."""
+        tokenizer/ and, unless ``safety_checker`` is False, safety_checker/
+        where present) with strict ``load_state_dict``; at the published
+        SD1.5 configs each state dict is first held to its manifest
+        (``core.manifest.check_state_dict``). ``strict=False`` skips the
+        manifests and drops keys the modules do not have (a missing key
+        still raises), as the JAX package's does."""
         from sketch2img_torch.data.tokenizer import CLIPBPETokenizer
 
-        dev = resolve_device(device)
-        set_precision()
+        dev = _device_for_models(device)
         with torch.device("meta"):
             unet = UNet2DCondition(unet_config)
             vae = AutoencoderKL(vae_config)
@@ -148,35 +181,37 @@ class SDComponents:
                 (text, "text_encoder/model", text_config == SD15_TEXT_CONFIG,
                  "text_encoder_sd15")):
             sd = _clean(_load_state_dict(os.path.join(model_path, sub)))
-            if full:
+            if full and strict:
                 check_state_dict(name, sd, what=os.path.join(model_path, sub))
-            module.load_state_dict(sd, strict=True, assign=True)
+            module.load_state_dict(_matching(module, sd, strict), strict=True, assign=True)
         tok_dir = os.path.join(model_path, "tokenizer")
         tokenizer = CLIPBPETokenizer.from_pretrained(tok_dir) if os.path.isdir(tok_dir) else None
         c = cls(unet=_frozen(unet, dev), vae=_frozen(vae, dev), text_encoder=_frozen(text, dev),
                 schedule=make_schedule(), device=dev, tokenizer=tokenizer)
-        if os.path.isdir(os.path.join(model_path, "safety_checker")):
-            c.load_safety_checker(os.path.join(model_path, "safety_checker"))
+        if safety_checker and os.path.isdir(os.path.join(model_path, "safety_checker")):
+            c.load_safety_checker(os.path.join(model_path, "safety_checker"), strict=strict)
         return c.cast_params(compute_dtype)
 
     def load_safety_checker(self, path: str,
-                            vision_config: CLIPVisionConfig = VIT_L14_CONFIG) -> None:
+                            vision_config: CLIPVisionConfig = VIT_L14_CONFIG, *,
+                            strict: bool = True) -> None:
         """Load the diffusers ``safety_checker/`` weights (a directory with
         model.safetensors, model.bin or pytorch_model.bin, or a file path
-        without its extension) strictly, in the UNet's dtype."""
+        without its extension) strictly, in the UNet's dtype; ``strict=False``
+        as in ``from_diffusers_dir``."""
         base = path
         if os.path.isdir(path):
             base = os.path.join(path, "model")
             if not any(os.path.exists(base + e) for e in (".safetensors", ".bin")):
                 base = os.path.join(path, "pytorch_model")
         sd = _clean(_load_state_dict(base))
-        if vision_config == VIT_L14_CONFIG:
+        if vision_config == VIT_L14_CONFIG and strict:
             check_state_dict("safety_checker_sd15", sd, what=base)
         n_concepts, proj_dim = sd["concept_embeds"].shape
         with torch.device("meta"):
             checker = SafetyChecker(vision_config, proj_dim, n_concepts,
                                     sd["special_care_embeds"].shape[0])
-        checker.load_state_dict(sd, strict=True, assign=True)
+        checker.load_state_dict(_matching(checker, sd, strict), strict=True, assign=True)
         self.safety_checker = _frozen(checker, self.device).to(self.unet.dtype)
 
     def random_safety_checker(self, seed: int = 0,
@@ -202,20 +237,25 @@ class SDComponents:
                   "A black image will be returned instead.")
         return img, flags
 
-    def load_lgp_torch(self, path: str) -> None:
-        """Load the published ``edge_predictor.pt`` strictly (kept fp32); an
-        LGP over the SD1.5 taps (9320 inputs) is held to its manifest."""
+    def load_lgp_torch(self, path: str, compute_dtype: torch.dtype = torch.float32,
+                       strict: bool = True) -> None:
+        """Load the published ``edge_predictor.pt`` strictly, its weights in
+        ``compute_dtype`` (fp32 by default: edge parity with the published
+        head); an LGP over the SD1.5 taps (9320 inputs) is held to its
+        manifest. ``strict=False`` as in ``from_diffusers_dir``."""
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        if sd["layers.0.weight"].shape[1] == tap_channels(SD15_CONFIG) + 4 + 36:
+        if strict and sd["layers.0.weight"].shape[1] == tap_channels(SD15_CONFIG) + 4 + 36:
             check_state_dict("edge_predictor", sd, what=path)
-        self.load_lgp_state(sd)
+        self.load_lgp_state(sd, strict=strict)
+        self.lgp.to(compute_dtype)
 
-    def load_lgp_state(self, sd: Dict[str, torch.Tensor]) -> None:
+    def load_lgp_state(self, sd: Dict[str, torch.Tensor], strict: bool = True) -> None:
         """An LGP state dict (``edge_predictor.pt`` layout), loaded strictly
-        into an LGP sized from it (kept fp32)."""
+        into an LGP sized from it (kept fp32); ``strict=False`` as in
+        ``from_diffusers_dir``."""
         lgp = LatentEdgePredictor(input_dim=sd["layers.0.weight"].shape[1],
                                   output_dim=sd["layers.12.weight"].shape[0])
-        lgp.load_state_dict(sd, strict=True)
+        lgp.load_state_dict(_matching(lgp, sd, strict), strict=True)
         self.lgp = _frozen(lgp, self.device)
 
     def save_native(self, directory: str) -> None:
@@ -263,8 +303,7 @@ class SDComponents:
             vae_from_jax,
         )
 
-        dev = resolve_device(device)
-        set_precision()
+        dev = _device_for_models(device)
 
         def tree(name):
             return load_params_npz(os.path.join(directory, name + ".npz"))
@@ -284,10 +323,13 @@ class SDComponents:
             c.load_lgp_state(lgp_from_jax(lgp["params"], lgp["batch_stats"]))
         return c.cast_params(compute_dtype)
 
-    def cast_params(self, dtype: torch.dtype = torch.bfloat16) -> "SDComponents":
+    def cast_params(self, dtype: torch.dtype = torch.bfloat16, *,
+                    lgp: bool = False) -> "SDComponents":
         """Cast the UNet, VAE, text encoder and safety checker to ``dtype``
-        once; the LGP stays fp32."""
-        for m in (self.unet, self.vae, self.text_encoder, self.safety_checker):
+        once; the LGP stays fp32 unless ``lgp`` (its parameters and running
+        statistics then take ``dtype`` too)."""
+        for m in (self.unet, self.vae, self.text_encoder, self.safety_checker,
+                  self.lgp if lgp else None):
             if m is not None:
                 m.to(dtype)
         return self
@@ -314,6 +356,7 @@ class SketchGuidedPipeline:
     components' one device, as before."""
 
     def __init__(self, components: SDComponents, mesh=None):
+        set_deterministic(components.device)
         self.c = components
         self.last_nsfw_flags: Optional[np.ndarray] = None
         self.last_remat: Optional[bool] = None  # remat of the last guided call

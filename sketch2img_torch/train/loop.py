@@ -34,7 +34,7 @@ from sketch2img_torch.data.dataset import ImageStore
 from sketch2img_torch.data.loader import Loader
 from sketch2img_torch.train.checkpoint import restore_train_state, save_train_state
 from sketch2img_torch.train.signals import GracefulShutdown
-from sketch2img_torch.utils.device import resolve_device
+from sketch2img_torch.utils.device import resolve_device, set_deterministic
 
 
 @dataclasses.dataclass
@@ -63,8 +63,10 @@ def as_config(config) -> Config:
 
 def components_device(components, device) -> torch.device:
     """``device`` resolved (a CUDA request without a GPU raises), and the
-    components required to be on it."""
+    components required to be on it; on the card cuDNN made deterministic,
+    so that a step from the same state and draws gives the same update."""
     dev = resolve_device(device)
+    set_deterministic(dev)
     if components.device != dev:
         raise ValueError(f"the components are on {components.device}, not on {dev}")
     return dev

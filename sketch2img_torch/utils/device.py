@@ -3,6 +3,11 @@
 ``"cuda"`` is the default everywhere and raises when no GPU is present:
 there is no silent fall back to the CPU. The CPU runs only when the caller
 passes ``device="cpu"`` (the tests do).
+
+Every entry point that puts models on a device (the ``SDComponents``
+constructors, both pipelines, the trainers, the process group) calls
+``set_precision`` and ``set_deterministic``: the same inputs and seed then
+give the same bits on the card, as they do in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +37,24 @@ def set_precision() -> None:
     VAE and text encoder run in their compute dtype (bf16 on the card)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def set_deterministic(device: Union[str, torch.device]) -> None:
+    """Bit-repeatable results on a CUDA device: cuDNN takes deterministic
+    algorithms only, and chooses them by its heuristics (no benchmarking,
+    which could pick another algorithm in another process).
+
+    Without it cuDNN's backward-data and backward-filter algorithms may sum in
+    a varying order, so the guided backward's gradient, and with it every
+    later step of a sketch-guided request, differs from run to run. This flag
+    is enough on the port's routes: the hand-written kernels sum in a fixed
+    order, cuBLAS is deterministic on one stream, and the one PyTorch op on a
+    backward that adds with atomics (bilinear upsampling) has a deterministic
+    backward in ``ops/resize.py``. A CPU device is left alone."""
+    if torch.device(device).type != "cuda":
+        return
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def current_stream_handle(device: torch.device) -> int:

@@ -173,6 +173,23 @@ def test_timestep_embedding_and_resize_match_jax():
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("src,dst", [((8, 8), (64, 64)), ((16, 16), (64, 64)),
+                                     ((32, 32), (64, 64)), ((5, 7), (12, 9))])
+def test_resize_backward_matches_jax(src, dst):
+    """The bilinear resize's backward (the adjoint through the 1-D
+    interpolation matrices, which replaces PyTorch's atomic-add CUDA
+    backward) against ``jax.vjp`` of the JAX package's resize: 1e-5 of the
+    gradient's scale. The taps' upsamplings to 64^2 and a ragged one."""
+    rng = np.random.RandomState(sum(src + dst))
+    x = rng.randn(2, *src, 3).astype(np.float32)
+    dy = rng.randn(2, *dst, 3).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: j_resize(a, *dst), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(dy))[0])
+    xt = t(nchw(x)).requires_grad_(True)
+    (got,) = torch.autograd.grad(resize_bilinear(xt, *dst), xt, t(nchw(dy)))
+    np.testing.assert_allclose(nhwc(got.numpy()), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
 def test_geglu_uses_tanh_under_bf16():
     from sketch2img_torch.models.layers import GEGLU
 

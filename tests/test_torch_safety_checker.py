@@ -90,7 +90,7 @@ def test_load_safety_checker_strictly_and_pipeline_blacks_out(tmp_path):
     from fakes import FakeTokenizer
 
     c = SDComponents.random_init(
-        seed=0, compute_dtype=torch.float32, device="cpu", lgp=False,
+        seed=0, compute_dtype=torch.float32, random_weights=True, device="cpu", lgp=False,
         unet_config=UNetConfig(block_out_channels=(32, 64), cross_attn=(True, False),
                                layers_per_block=1, num_heads=2, cross_attention_dim=32),
         vae_config=VAEConfig(block_out_channels=(32, 64), layers_per_block=1),

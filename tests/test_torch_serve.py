@@ -445,7 +445,7 @@ def tiny_pipe():
     from sketch2img_torch.runtime import SDComponents, SketchGuidedPipeline
 
     c = SDComponents.random_init(
-        seed=0, compute_dtype=torch.float32, device="cpu",
+        seed=0, compute_dtype=torch.float32, random_weights=True, device="cpu",
         unet_config=UNetConfig(block_out_channels=(32, 32, 64), cross_attn=(True, True, False),
                                layers_per_block=1, num_heads=2, cross_attention_dim=32),
         vae_config=VAEConfig(block_out_channels=(32, 64), layers_per_block=1),

@@ -63,7 +63,7 @@ def components(seed: int = 0):
     from sketch2img_torch.runtime import SDComponents
 
     c = SDComponents.random_init(
-        seed=seed, compute_dtype=torch.float32, device="cpu",
+        seed=seed, compute_dtype=torch.float32, random_weights=True, device="cpu",
         unet_config=UNetConfig(block_out_channels=(32, 32, 64), cross_attn=(True, True, False),
                                layers_per_block=1, num_heads=2, cross_attention_dim=32),
         vae_config=VAEConfig(block_out_channels=(32, 64), layers_per_block=1),
