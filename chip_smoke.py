@@ -24,7 +24,11 @@ Phases, each printing its own lines:
               kv_len case, one shape of every head-dim bucket, a head dim
               TMA cannot take in place, the flash forward at the injection
               path's shapes (batch 16 self- and concat attention, the ViT's
-              257 tokens), and both variants of the GroupNorm kernel (one
+              257 tokens); at every flash case with d <= 64 each forward
+              tile (128 queries on two consumer warpgroups, 192 on three)
+              forced, held to the plain version, launched twice and timed
+              beside the library and the tile the rule picks; and both
+              variants of the GroupNorm kernel (one
               pass on clusters where a group fits 16 blocks' shared memory,
               and the split two-pass one) at every (B, C, H, W, eps, silu)
               recorded from one pass of each model on both paths, on real
@@ -46,15 +50,16 @@ Phases, each printing its own lines:
               deterministic implementation); then a 512x512, 50-step
               sketch-guided request through ``SketchGuidedPipeline`` (after a
               4-step warm-up), launch counters zeroed just before and read
-              just after, and again: the same image bit for bit; the same
+              just after (the flash forward's by tile against the rule on
+              the calls it made), and again: the same image bit for bit; the same
               request with the DDIM solver at 10 steps and as text-to-image
               (no sketch), each twice, bit-identical;
   4. inject   the attention-injection path: ``ClipGuidedPipeline`` with the
               clip-injected UNet, the ViT-L/14 sketch encoder and a safety
               checker (seeded random weights, bf16), one 512x512 request at
               batch 8, 25 DPM-Solver++ steps, guidance 7.5, strength 0.5, one
-              sketch, launch counters zeroed just before and read just after;
-              run again, bit-identical;
+              sketch, launch counters zeroed just before and read just after
+              (by tile, as in e2e); run again, bit-identical;
   5. train_lgp     the LGP trainer (``apps/train_lgp.train_lgp``) on the
               full-width stack plus a full-width anime2sketch generator:
               batch 4 at 512^2 from a seeded folder of synthetic PNG images
@@ -446,6 +451,10 @@ def check_flash(fa, torch) -> dict:
             time_ms(sdpa), graph_ms(sdpa))}
         if (b, h, nq, d) == (1, HEADS, 256, 160) and tag == "main":
             log(f"  flash_forward host time a call at (1, 8, 256, 160): {host_us(fwd):.2f} us")
+        if d <= 64 and hasattr(fa, "FWD_TILES"):
+            failures += check_forward_tiles(fa, torch, q, k, v, scale, kv_len, o_ref, lse_ref,
+                                            f"case={tag} (B={b},H={h},nq={nq},kv_len={kvl},"
+                                            f"d={d})", times["flash_fwd"][4])
         if with_bwd:
             dq, dk, dv = fa.flash_backward(q, k, v, o, lse, do, scale, kv_len)
             # the reference takes the plain forward's O and LSE, so an error in
@@ -549,6 +558,69 @@ def check_flash(fa, torch) -> dict:
     if failures:
         raise PhaseError("; ".join(failures))
     return per_kernel
+
+
+def check_forward_tiles(fa, torch, q, k, v, scale, kv_len, o_ref, lse_ref, label,
+                        library_device_ms) -> list:
+    """Each forward tile forced at one d <= 64 case: against the plain
+    version (``TOL_REL`` of max|O|, ``TOL_LSE_ABS``), bit-identical on a
+    second launch, and its device ms beside the library's and the tile the
+    rule picks. -> the failures."""
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    b, h, nq, d = q.shape
+    kvl = k.shape[2] if kv_len is None else min(kv_len, k.shape[2])
+    picked = fa.FWD_TILES[fa.forward_variant(b, h, nq, kvl, d, sms)]
+    failures = []
+    for variant, tile in enumerate(fa.FWD_TILES):
+        def run(variant=variant):
+            return fa.flash_forward(q, k, v, scale, kv_len, variant=variant)
+
+        (o, lse), (o2, lse2) = run(), run()
+        torch.cuda.synchronize()
+        err = float((o.float() - o_ref.float()).abs().max())
+        tol = TOL_REL * float(o_ref.float().abs().max())
+        lse_err = float((lse - lse_ref).abs().max())
+        same = bool(o.equal(o2) and lse.equal(lse2))
+        ok = bool(torch.isfinite(o).all()) and err <= tol and lse_err <= TOL_LSE_ABS and same
+        log(f"  forward tile {tile} {label}: device_ms={graph_ms(run):.4f}"
+            f" library_device_ms={library_device_ms:.4f} O:err={err:.3e},tol={tol:.3e}"
+            f" LSE:err={lse_err:.3e} twice_bit_identical={same} ok={ok} rule={picked}")
+        if not ok:
+            failures.append(f"forward tile {tile} {label}: O err {err:.3e} (tol {tol:.3e}),"
+                            f" LSE err {lse_err:.3e}, twice bit-identical {same}")
+    return failures
+
+
+def record_forward_shapes(fa):
+    """Wrap the module's ``flash_forward`` so that each call's (B, H, nq,
+    keys, d) is recorded, keys past kv_len left out. -> (the list it fills,
+    a function that unwraps it)."""
+    shapes, real = [], fa.flash_forward
+
+    def recorder(q, k, v, scale, kv_len=None, **kw):
+        b, h, nq, d = q.shape
+        keys = k.shape[2] if kv_len is None else min(kv_len, k.shape[2])
+        shapes.append((b, h, nq, keys, d))
+        return real(q, k, v, scale, kv_len, **kw)
+
+    fa.flash_forward = recorder
+    return shapes, lambda: setattr(fa, "flash_forward", real)
+
+
+def check_tile_counts(fa, torch, path: str, shapes) -> None:
+    """The forward's launches by tile (``FWD_VARIANTS``) are the rule's
+    choice on each call the path made (a package without the counter: none
+    to check)."""
+    if not hasattr(fa, "FWD_VARIANTS"):
+        return
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = dict.fromkeys(fa.FWD_TILES, 0)
+    for shape in shapes:
+        want[fa.FWD_TILES[fa.forward_variant(*shape, sms)]] += 1
+    got = dict(fa.FWD_VARIANTS)
+    log(f"  {path}: flash forward launches by tile {got} (the rule on its calls: {want})")
+    if got != want:
+        raise PhaseError(f"{path}: forward launches by tile {got} != the rule's {want}")
 
 
 def split_backward(fa, torch, q, k, v, o, lse, do, scale, kvl, variant: int = 0):
@@ -1354,13 +1426,20 @@ def run_e2e(stack, fa, gn, torch, steps: int) -> dict:
         torch.cuda.synchronize()
         if count:
             reset_counts(fa, gn)
+            shapes, unwrap = record_forward_shapes(fa)
         start = time.perf_counter()
-        img = pipe("a sketch of a house", num_inference_steps=n_steps, width=512, height=512,
-                   seed=1234, sketch_image=sketch, callback=cb if per_step else None)
-        torch.cuda.synchronize()
+        try:
+            img = pipe("a sketch of a house", num_inference_steps=n_steps, width=512,
+                       height=512, seed=1234, sketch_image=sketch,
+                       callback=cb if per_step else None)
+            torch.cuda.synchronize()
+        finally:
+            if count:
+                unwrap()
         launches = counts(fa, gn) if count else None
         if count:
             check_no_copies(fa, "sketch-guided request")
+            check_tile_counts(fa, torch, "sketch-guided request", shapes)
         return img, launches, start, marks, time.perf_counter()
 
     run(4, False)  # warm-up: cuDNN plans for both batch sizes, allocator
@@ -1435,12 +1514,17 @@ def run_inject(stack, fa, gn, torch) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(fa, gn)
+        shapes, unwrap = record_forward_shapes(fa)
         start = time.perf_counter()
-        img = pipe(prompts, num_inference_steps=INJ_STEPS, **kw)  # the counted run
-        torch.cuda.synchronize()
+        try:
+            img = pipe(prompts, num_inference_steps=INJ_STEPS, **kw)  # the counted run
+            torch.cuda.synchronize()
+        finally:
+            unwrap()
         end = time.perf_counter()
         launches = counts(fa, gn)
         check_no_copies(fa, "injection request")
+        check_tile_counts(fa, torch, "injection request", shapes)
         peak = torch.cuda.max_memory_allocated() / 2**30
         start2 = time.perf_counter()
         img2 = pipe(prompts, num_inference_steps=INJ_STEPS, **kw)

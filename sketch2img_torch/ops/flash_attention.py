@@ -29,12 +29,16 @@ kernels compute in bf16 either way) and the outputs cast back to fp32.
 
 Dispatch: a CPU tensor takes the plain version (the CPU tests); a CUDA
 tensor launches the kernel, and any failure to build or launch raises.
-``LAUNCHES`` counts kernel launches per kernel.
+``LAUNCHES`` counts kernel launches per kernel, ``FWD_VARIANTS`` the
+forward's by tile: ``forward_variant`` picks the tile from the call's shape
+and the card's SM count (``csrc/flash_fwd.cu`` states the rule's
+measurements).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional, Tuple
 
@@ -43,6 +47,16 @@ import torch
 from sketch2img_torch.utils.device import current_stream_handle
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+#: the forward's tiles, by the ``variant`` code its C entry point takes:
+#: 128 queries a block on two consumer warpgroups (every head dim), 192 on
+#: three (head dims up to WIDE_MAX_HEAD_DIM)
+FWD_TILES = ("bm128", "bm192")
+#: forward launches by tile
+FWD_VARIANTS = dict.fromkeys(FWD_TILES, 0)
+WIDE_MAX_HEAD_DIM = 64
+WIDE_ROWS = 192
+#: the 192-query tile where its grid fills the card at least this many times
+WIDE_MIN_WAVES = 1.5
 #: operands the wrapper had to copy before TMA would take them, by kernel
 TMA_COPIES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 SOURCES = ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu")
@@ -59,15 +73,15 @@ _VIEW = [_ptr, _i64, _i64, _i64]  # a tensor's base and its B, H, N strides
 _DIMS = [_i32] * 6 + [_f32, _i32]  # B, H, nq, nk, d, kv_len, scale, dtype
 #: the C entry points' parameters (device, stream, ...); each returns a CUDA error
 ARGTYPES = {
-    "flash_fwd": [_i32, _ptr] + _VIEW * 4 + [_ptr] + _DIMS,
+    "flash_fwd": [_i32, _ptr] + _VIEW * 4 + [_ptr] + _DIMS + [_i32],
     "flash_bwd_dq": [_i32, _ptr] + _VIEW * 5 + [_ptr, _ptr] + _VIEW + _DIMS + [_i32],
     "flash_bwd_dkv": [_i32, _ptr] + _VIEW * 4 + [_ptr, _ptr] + _VIEW * 2 + _DIMS,
 }
 
 
 def reset_launch_counts() -> None:
-    """Zero ``LAUNCHES`` and ``TMA_COPIES``."""
-    for counts in (LAUNCHES, TMA_COPIES):
+    """Zero ``LAUNCHES``, ``FWD_VARIANTS`` and ``TMA_COPIES``."""
+    for counts in (LAUNCHES, FWD_VARIANTS, TMA_COPIES):
         for name in counts:
             counts[name] = 0
 
@@ -233,9 +247,30 @@ def _kv_len(nk: int, kv_len: Optional[int]) -> int:
     return nk if kv_len is None else min(int(kv_len), nk)
 
 
-def flash_forward(q, k, v, scale: float, kv_len: Optional[int] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, H, nq, d) x (B, H, nk, d) -> (O, LSE). Keys >= kv_len masked."""
+def forward_variant(b: int, h: int, nq: int, kv: int, d: int, sms: int) -> int:
+    """The forward's tile for a (b, h, nq, d) call over ``kv`` keys on a
+    card of ``sms`` SMs (an index into ``FWD_TILES``): 192 queries a block on
+    three consumer warpgroups where d <= 64, that grid fills the card
+    WIDE_MIN_WAVES times or more, and its 192-key tiles are fewer than the
+    128-key ones (kv <= 128 or 193-256 would only add masked keys); else
+    128 queries on two."""
+    blocks = b * h * -(-nq // WIDE_ROWS)
+    return int(d <= WIDE_MAX_HEAD_DIM and blocks >= WIDE_MIN_WAVES * sms
+               and -(-kv // WIDE_ROWS) < -(-kv // 128))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def flash_forward(q, k, v, scale: float, kv_len: Optional[int] = None,
+                  variant: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, nq, d) x (B, H, nk, d) -> (O, LSE). Keys >= kv_len masked.
+    ``variant`` forces a tile of ``FWD_TILES`` (above 0: d <= 64 only);
+    None takes ``forward_variant``'s."""
+    if variant not in (None, 0, 1) or (variant == 1 and q.shape[3] > WIDE_MAX_HEAD_DIM):
+        raise ValueError(f"no forward tile {variant!r} at head dim {q.shape[3]}")
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, scale, kv_len)
     _check_cuda(scale, q, k, v)
@@ -243,13 +278,17 @@ def flash_forward(q, k, v, scale: float, kv_len: Optional[int] = None
     q, k, v = _prepare("flash_fwd", q, k, v)
     b, h, nq, d = q.shape
     nk = k.shape[2]
+    kvl = _kv_len(nk, kv_len)
+    if variant is None:
+        variant = forward_variant(b, h, nq, kvl, d, _sm_count(q.device.index))
     o = _heads_merged(b, h, nq, d, q)
     lse = torch.empty(b, h, nq, dtype=torch.float32, device=q.device)
     lib = load_library()
     stream = current_stream_handle(q.device)
     _launch("flash_fwd", lib.flash_fwd, q.device.index, stream,
             *_view(q), *_view(k), *_view(v), *_view(o), lse.data_ptr(),
-            b, h, nq, nk, d, _kv_len(nk, kv_len), float(scale), _DTYPE_CODES[torch.bfloat16])
+            b, h, nq, nk, d, kvl, float(scale), _DTYPE_CODES[torch.bfloat16], variant)
+    FWD_VARIANTS[FWD_TILES[variant]] += 1
     return (o if dtype == torch.bfloat16 else o.to(dtype)), lse
 
 

@@ -18,9 +18,10 @@ import os
 from sketch2img_torch.utils.cuda_build import CSRC_DIR
 
 HEADER = "wgmma_ops.cuh"
-# S = Q K^T (forward, N = key tile) and S^T = K Q^T, dP^T = V dO^T (dK/dV
-# pass, N = query tile): both operands in shared memory, K-major
-SS_WIDTHS = (32, 64, 128)
+# S = Q K^T (forward, N = key tile: 192 in its 192-query tile) and S^T =
+# K Q^T, dP^T = V dO^T (dK/dV pass, N = query tile): both operands in shared
+# memory, K-major
+SS_WIDTHS = (32, 64, 128, 192)
 # O += P V and dV += P^T dO, dK += dS^T Q: A from registers, B MN-major
 # (N = the head-dim bucket, or half of it where the dK/dV pass splits it)
 RS_WIDTHS = (32, 48, 64, 80, 96, 128, 160, 192, 256)

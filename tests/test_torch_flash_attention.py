@@ -267,6 +267,61 @@ def test_kv_len_below_one_is_refused(kv_len):
         tfa._kv_len(384, kv_len)
 
 
+# the forward's tile on the H100 (132 SMs) at the UNet's 64^2 self-attention
+# (nq = kv = 4096; d > 64 stands for the 32^2 and 16^2 buckets) by batch 1,
+# 2, 4, 16: 192-query tiles ("bm192") from 1.5 waves of them, 198 blocks
+# (B*H*22 at 4096 queries)
+@pytest.mark.parametrize("d,heads,want", [
+    (40, 8, ["bm128", "bm192", "bm192", "bm192"]),
+    (40, 4, ["bm128", "bm128", "bm192", "bm192"]),
+    (64, 8, ["bm128", "bm192", "bm192", "bm192"]),
+    (64, 4, ["bm128", "bm128", "bm192", "bm192"]),
+    (80, 8, ["bm128"] * 4), (80, 4, ["bm128"] * 4),
+    (160, 8, ["bm128"] * 4), (160, 4, ["bm128"] * 4),
+    (256, 8, ["bm128"] * 4), (256, 4, ["bm128"] * 4),
+])
+def test_forward_tile_rule(d, heads, want):
+    got = [tfa.FWD_TILES[tfa.forward_variant(b, heads, 4096, 4096, d, 132)] for b in (1, 2, 4, 16)]
+    assert got == want
+
+
+@pytest.mark.parametrize("b,nq,d,want", [
+    (1, 257, 64, 0),       # the ViT's 257 tokens at batch 1: 32 blocks
+    (8, 257, 64, 1),       # the safety checker's batch 8: 256 blocks
+    (6, 257, 64, 0),       # 192 blocks, under 1.5 waves
+    (7, 257, 64, 1),       # 224
+    (4096, 4096, 80, 0),   # head dims past 64 never take it, whatever the grid
+    (4096, 257, 65, 0),
+])
+def test_forward_tile_rule_at_other_shapes(b, nq, d, want):
+    assert tfa.forward_variant(b, 16, nq, nq, d, 132) == want
+
+
+# keys: the 192-query tile only where its 192-key tiles are fewer than the
+# 128-key ones (the text's 77 and the trainer's 231 keys take 128 queries)
+@pytest.mark.parametrize("kv,want", [
+    (77, 0), (128, 0), (129, 1), (192, 1), (193, 0), (231, 0), (256, 0), (257, 1),
+    (4096, 1), (4353, 1),
+])
+def test_forward_tile_rule_by_keys(kv, want):
+    assert tfa.forward_variant(16, 8, 4096, kv, 40, 132) == want
+
+
+def test_forward_tile_counts_are_reset():
+    assert set(tfa.FWD_VARIANTS) == set(tfa.FWD_TILES) == {"bm128", "bm192"}
+    for tile in tfa.FWD_TILES:
+        tfa.FWD_VARIANTS[tile] = 5
+    tfa.reset_launch_counts()
+    assert tfa.FWD_VARIANTS == {"bm128": 0, "bm192": 0}
+
+
+@pytest.mark.parametrize("variant,d", [(1, 80), (2, 40), (-1, 40)])
+def test_forward_refuses_a_tile_it_does_not_have(variant, d):
+    q = torch.zeros(1, 2, 128, d)
+    with pytest.raises(ValueError):
+        tfa.flash_forward(q, q, q, d ** -0.5, variant=variant)
+
+
 @pytest.mark.parametrize("name", sorted(tfa.ARGTYPES))
 def test_ctypes_signatures_match_the_sources(name):
     """The wrapper's ctypes parameters of each kernel's C entry point are
@@ -344,6 +399,31 @@ def test_cuda_kernels_match_plain_version_on_card():
         if kv_len is not None:
             assert got[1][:, :, kv_len:].abs().max().item() == 0.0, case
             assert got[2][:, :, kv_len:].abs().max().item() == 0.0, case
+
+
+@pytest.mark.cuda
+def test_cuda_forward_tiles_match_plain_version_on_card():
+    """Each forward tile, forced, at the ``CARD_CASES`` with d <= 64 and at
+    the ViT's 257 tokens: O within 2% of its largest reference value, the
+    LSE within 1e-3, and a second launch bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `pytest -m cuda "
+                    "tests/test_torch_flash_attention.py` on the GPU machine")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [c[:6] for c in CARD_CASES if c[4] <= 64] + [(2, 16, 257, 257, 64, None)]
+    for b, h, nq, nk, d, kv_len in cases:
+        q, k, v = (torch.randn(b, h, n, d, generator=gen, device="cuda").bfloat16()
+                   for n in (nq, nk, nk))
+        o_ref, lse_ref = tfa.flash_forward_plain(q, k, v, d ** -0.5, kv_len)
+        for variant in (0, 1):
+            o, lse = tfa.flash_forward(q, k, v, d ** -0.5, kv_len, variant=variant)
+            o2, lse2 = tfa.flash_forward(q, k, v, d ** -0.5, kv_len, variant=variant)
+            torch.cuda.synchronize()
+            case = (b, h, nq, nk, d, kv_len, variant)
+            err = (o.float() - o_ref.float()).abs().max().item()
+            assert err <= 2e-2 * o_ref.float().abs().max().item(), (case, err)
+            assert (lse - lse_ref).abs().max().item() <= 1e-3, case
+            assert o.equal(o2) and lse.equal(lse2), case
 
 
 @pytest.mark.cuda
